@@ -39,7 +39,13 @@ import zlib
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-ATOL, RTOL = 2e-2, 2e-2  # bf16 output and bf16 softmax probabilities vs a float32 twin
+# Kernel vs its float32 twin.  Both round the output to bf16 (one ulp is at
+# most 2^-7 relative) and the kernel also rounds P to bf16 before P.V; with
+# N(0,1) inputs a typical output is ~0.03 at 4096 keys, so the absolute limit
+# sits near a tenth of that and a relative-L2 limit catches faults spread thin
+# over every row (a dropped K tile, a wrong rescale) that max |err| would not.
+ATOL, RTOL = 4e-3, 1e-2
+REL_L2 = 1e-2  # ||out - ref|| / ||ref|| per shape
 STEPS, SIZE, BATCH = 30, 512, 8
 DEVICE = "cuda"
 KERNEL_SRC = "tpustack_torch/ops/csrc/flash_attention.cu"
@@ -132,14 +138,16 @@ def phase_kernels(torch):
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+        diff = out.float() - ref.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+        ok = torch.allclose(out.float(), ref.float(), atol=ATOL, rtol=RTOL) and rel < REL_L2
         b, sq, h, d = qs
         sk, hkv = ks[1], ks[2]
         off, klen = kw.get("q_offset", 0), kw.get("kv_len", sk)
         bound_ms, bound_by = attention_bound(b, sq, sk, h, hkv, d, kw.get("causal", False),
                                              off, klen)
-        rec = dict(label=label, shape_q=list(qs), shape_kv=list(ks), max_abs_err=err,
+        rec = dict(label=label, shape_q=list(qs), shape_kv=list(ks), max_abs_err=err, rel_l2=rel,
                    ok=bool(ok), on_sd15_path=on_path, bound_ms=bound_ms, bound_by=bound_by)
         iters = 20 if b * sq * sk > 1e8 else 50
         rec["ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
@@ -156,7 +164,8 @@ def phase_kernels(torch):
         del ref, out
         torch.cuda.empty_cache()
         log(f"kernel flash_attention {label}: q {list(qs)} kv {list(ks)} {kw or ''} "
-            f"max_abs_err={err:.3e} (atol {ATOL}, rtol {RTOL}) {'OK' if ok else 'MISMATCH'} "
+            f"max_abs_err={err:.3e} (atol {ATOL}, rtol {RTOL}) rel_l2={rel:.3e} "
+            f"(limit {REL_L2}) {'OK' if ok else 'MISMATCH'} "
             f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}")
         if not ok:
@@ -310,11 +319,11 @@ def main() -> int:
     from tpustack_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention"])
+    text = _build.build("flash_attention")
     log(f"kernels built in {time.perf_counter() - t0:.2f}s")
-    for name, text in logs.items():  # ptxas: registers and spills per instantiation
-        log("\n".join(f"{name}: {ln.strip()}" for ln in text.splitlines()
-                      if "registers" in ln or "spill" in ln))
+    # ptxas: registers and spills per instantiation
+    log("\n".join(f"flash_attention: {ln.strip()}" for ln in text.splitlines()
+                  if "registers" in ln or "spill" in ln))
 
     # phase 3: kernels vs their twins
     records = phase_kernels(torch)
@@ -325,13 +334,15 @@ def main() -> int:
     # phase 5: the kernels line, at the main path's batch-1 level-0 shape
     head = records[0]
     detail = [{k: r[k] for k in ("label", "shape_q", "shape_kv", "ms", "plain_ms",
-                                 "library_ms", "bound_ms", "max_abs_err")} for r in records]
+                                 "library_ms", "bound_ms", "max_abs_err", "rel_l2")}
+              for r in records]
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "also_replaces": KERNEL_ALSO_REPLACES,
         "launches": main_path["launches"],
-        "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL of the twin
+        "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL and REL_L2
         "max_abs_err": max(r["max_abs_err"] for r in records),
+        "rel_l2": max(r["rel_l2"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["label"], "shapes": detail,

@@ -136,16 +136,20 @@ def test_dot_product_attention_rejects():
         flash_attention(torch.zeros(1, 8, 3, 16), q, q)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize("args,want", [
-    ((4096, 4096, False, "cuda"), "flash"),   # SD1.5 level 0 self-attention
-    ((1024, 1024, False, "cuda"), "flash"),   # level 1
-    ((256, 256, False, "cuda"), "xla"),       # level 2 / mid: too short
-    ((4096, 77, False, "cuda"), "xla"),       # cross-attention: 77 keys
-    ((4096, 4096, True, "cuda"), "xla"),      # masked
-    ((4096, 4096, False, "cpu"), "xla"),      # no kernel off the card
-    ((32768, 32768, False, "cuda"), "flash"),  # no panel ceiling on Hopper
-    ((1024, 256, False, "cuda"), "flash"),    # both bounds inclusive
-    ((1023, 4096, False, "cuda"), "xla"),
+    ((4096, 4096, False, "cuda", BF16), "flash"),   # SD1.5 level 0 self-attention
+    ((1024, 1024, False, "cuda", BF16), "flash"),   # level 1
+    ((256, 256, False, "cuda", BF16), "xla"),       # level 2 / mid: too short
+    ((4096, 77, False, "cuda", BF16), "xla"),       # cross-attention: 77 keys
+    ((4096, 4096, True, "cuda", BF16), "xla"),      # masked
+    ((4096, 4096, False, "cpu", BF16), "xla"),      # no kernel off the card
+    ((4096, 4096, False, "cuda", F32), "xla"),      # the kernel takes bf16 only
+    ((32768, 32768, False, "cuda", BF16), "flash"),  # no panel ceiling on Hopper
+    ((1024, 256, False, "cuda", BF16), "flash"),    # both bounds inclusive
+    ((1023, 4096, False, "cuda", BF16), "xla"),
 ])
 def test_auto_impl_rule(args, want):
     assert auto_impl(*args) == want

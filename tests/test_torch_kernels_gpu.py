@@ -6,9 +6,12 @@ where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance 2e-2 absolute and relative on bf16 outputs: the kernel rounds the
-softmax probabilities to bf16 before the P.V product and its output to bf16
-(relative step 2^-8), while the twin stays float32 to the end.
+Tolerance, as in ``chip_smoke.py``: 4e-3 absolute and 1e-2 relative per
+element, and 1e-2 relative L2 per case.  Both sides round the output to bf16
+(one ulp is at most 2^-7 relative) and the kernel also rounds the softmax
+probabilities to bf16 before P.V; a typical output of N(0,1) inputs over 4096
+keys is ~0.03, and the L2 limit catches faults spread thin over every row (a
+dropped K tile, a wrong rescale) that an element-wise limit would not.
 """
 
 import pytest
@@ -46,7 +49,9 @@ def test_flash_kernel_matches_twin(cuda, qs, ks, kw):
     assert flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     ref = flash_attention_ref(q, k, v, **kw)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=4e-3, rtol=1e-2)
+    rel = (out.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30)
+    assert rel < 1e-2, rel
 
 
 @pytest.mark.gpu

@@ -86,6 +86,7 @@ def test_endpoints_and_generate(server, pipe):
     ({"prompt": "   "}, 400),
     ({"prompt": ""}, 400),
     ({"prompt": "x", "width": 72, "height": 64, "steps": 1}, 400),  # not a multiple of 64
+    ({"prompt": "x", "steps": 0}, 400),
     ({"steps": 2}, 422),                          # prompt missing
     ({"prompt": "x", "steps": "many"}, 422),
     ({"prompt": "x", "seed": 1.5}, 422),
@@ -96,6 +97,28 @@ def test_bad_requests(server, body, status):
     server.batch_window_s = 0.0
     got, _, payload = _call(server.url + "/generate", body)
     assert got == status and "detail" in json.loads(payload)
+
+
+class _FailingPipeline:
+    """Passes the request checks, then fails inside the dispatch."""
+    device = "cpu"
+
+    def check_request(self, steps, width, height):
+        pass
+
+    def generate(self, *args, **kwargs):
+        raise ValueError("flash_attention kernel takes bfloat16")
+
+
+def test_pipeline_failure_is_500_not_400():
+    """A fault of the server's own dispatch is no bad request."""
+    srv = SDServer(_FailingPipeline(), batch_window_ms=0, max_batch=1)
+    url = f"http://127.0.0.1:{srv.start(host='127.0.0.1', port=0)}"
+    try:
+        status, _, payload = _call(url + "/generate", {"prompt": "x", **SMALL})
+    finally:
+        srv.stop()
+    assert status == 500 and "bfloat16" in json.loads(payload)["detail"]
 
 
 def test_malformed_json_is_422(server):

@@ -128,6 +128,16 @@ class SD15Pipeline:
         return torch.round(img).to(torch.uint8), x
 
     # --------------------------------------------------------------- public
+    def check_request(self, steps: int, width: int, height: int) -> None:
+        """Raise ``ValueError`` for a request :meth:`generate` cannot serve."""
+        c = self.config
+        # latents must survive the UNet's own down/up path cleanly
+        factor = c.vae_scale * 2 ** (len(c.unet.block_out_channels) - 1)
+        if width % factor or height % factor or width <= 0 or height <= 0:
+            raise ValueError(f"width/height must be positive multiples of {factor}")
+        if steps < 1:
+            raise ValueError("steps must be >= 1")
+
     def generate(self, prompt, *, steps: int = 30, guidance_scale: float = 7.5,
                  seed=None, width: int = 512, height: int = 512,
                  negative_prompt="", batch_size: int = 1) -> Tuple[np.ndarray, float]:
@@ -141,12 +151,7 @@ class SD15Pipeline:
         seed."""
         t0 = time.perf_counter()
         c = self.config
-        # latents must survive the UNet's own down/up path cleanly
-        factor = c.vae_scale * 2 ** (len(c.unet.block_out_channels) - 1)
-        if width % factor or height % factor or width <= 0 or height <= 0:
-            raise ValueError(f"width/height must be positive multiples of {factor}")
-        if steps < 1:
-            raise ValueError("steps must be >= 1")
+        self.check_request(steps, width, height)
         prompts = [prompt] * batch_size if isinstance(prompt, str) else list(prompt)
         negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
                 else list(negative_prompt))

@@ -3,10 +3,8 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` into a plain C-ABI shared
 library under ``<checkout>/build/kernels/``, named by a hash of its source and
 flags, and is loaded with ``ctypes``.  The build happens at first use, never at
-import, so the CPU-only tests import every module without ``nvcc``.
-
-:func:`build` starts one ``nvcc`` per missing library, all at once, and waits
-for them together.  A failed build raises with the compiler's output.
+import, so the CPU-only tests import every module without ``nvcc``.  A failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -50,32 +48,22 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every library in ``names`` that is not built yet, in parallel.
+def build(name: str) -> str:
+    """Compile ``ops/csrc/<name>.cu`` unless it is built already.
 
-    Returns ``{name: ptxas/compiler log}`` for the libraries built by this
-    call (empty for ones already on disk)."""
+    Returns the compiler's log (ptxas registers and spills), or ``""`` when
+    the library was on disk."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -83,7 +71,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib

@@ -22,9 +22,12 @@ FLASH_MIN_SQ = 1024
 FLASH_MIN_SK = 256
 
 
-def auto_impl(sq: int, sk: int, has_mask: bool, device_type: str) -> str:
-    """The ``impl="auto"`` rule: the flash kernel on CUDA for unmasked
-    attention with ``sq >= 1024`` and ``sk >= 256``, the plain path otherwise.
+def auto_impl(sq: int, sk: int, has_mask: bool, device_type: str,
+              dtype: torch.dtype) -> str:
+    """The ``impl="auto"`` rule: the flash kernel on CUDA for unmasked bf16
+    attention with ``sq >= 1024`` and ``sk >= 256``, the plain path otherwise
+    (the kernel takes bf16 only, so float32 work such as the ``tiny()``
+    preset's stays plain).
 
     Provisional.  The TPU rule also bounds batch*heads and the K/V panel
     length (``PANEL_MAX_KV``); both encode the TPU's sequential grid and
@@ -33,7 +36,7 @@ def auto_impl(sq: int, sk: int, has_mask: bool, device_type: str) -> str:
     512x512 this sends the level-0 and level-1 UNet self-attention (4096 and
     1024 tokens) to the kernel at every batch size; cross-attention (77
     keys), the level-2/mid attention, CLIP and the VAE stay plain."""
-    return ("flash" if device_type == "cuda" and not has_mask
+    return ("flash" if device_type == "cuda" and dtype == torch.bfloat16 and not has_mask
             and sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK else "xla")
 
 
@@ -64,7 +67,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "batch/head axes")
 
     if impl == "auto":
-        impl = auto_impl(sq, sk, mask is not None, q.device.type)
+        impl = auto_impl(sq, sk, mask is not None, q.device.type, q.dtype)
         if impl == "flash" and causal and sq > sk:
             impl = "xla"  # flash rejects this shape (below); auto must not
 

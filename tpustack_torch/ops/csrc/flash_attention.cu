@@ -96,32 +96,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Start copying a K or V tile like load_tile does, asynchronously.
+// Copy `rows` rows of D bf16 values (row r at src + r*row_stride elements)
+// into a [nrows][LD] shared tile with cp.async, zero-filling rows >= rows and
+// columns in [D, DP).  D is a multiple of 8, so each 16-byte chunk is wholly
+// in or out.  The caller commits and waits.
 template <int DP, int LD>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int nrows, int rows,
                                                 long long row_stride, int D) {
-  constexpr int CH = DP / 8;
+  constexpr int CH = DP / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < nrows * CH; idx += THREADS) {
     const int r = idx / CH;
     const int c = (idx - r * CH) * 8;
     const bool in = r < rows && c < D;
     cp_async_16(dst + r * LD + c, in ? src + r * row_stride + c : src, in ? 16 : 0);
-  }
-}
-
-// Copy `rows` rows of D bf16 values (row r at src + r*row_stride elements)
-// into a [nrows][LD] shared tile, zero-filling rows >= rows and columns in
-// [D, DP).  D is a multiple of 8, so each 16-byte chunk is wholly in or out.
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int nrows, int rows,
-                                          long long row_stride, int D) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < nrows * CH; idx += THREADS) {
-    const int r = idx / CH;
-    const int c = (idx - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && c < D) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
 }
 
@@ -157,7 +144,9 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (long long)b * Sk * kv_row_stride + (long long)hk * D;
 
   const int q_rows = min(BQ, Sq - q0);
-  load_tile<DP, LD>(sq, qb, BQ, q_rows, q_row_stride, D);
+  load_tile_async<DP, LD>(sq, qb, BQ, q_rows, q_row_stride, D);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int wrow = warp * 16;                 // the warp's first row in the block

@@ -8,8 +8,8 @@ sd15-api app's), so ``scripts/batch_generate.py`` drives either server:
 - ``GET /last``      -> last PNG, or 404 before the first image
 - ``POST /generate`` -> PNG + ``X-Gen-Time: <sec>s``; body ``{prompt,
   steps=30, guidance_scale=7.5, seed, width=512, height=512,
-  negative_prompt}``; 400 on an empty prompt or a bad size, 422 on a
-  malformed body.
+  negative_prompt}``; 400 on an empty prompt, a bad size or no steps, 422
+  on a malformed body, 500 when the pipeline fails.
 
 ``http.server.ThreadingHTTPServer`` serves each request on its own thread.
 A micro-batcher groups concurrent requests with the same ``(steps, guidance,
@@ -22,9 +22,10 @@ number padding would bound.
 
 Env: ``PORT`` (8000), ``SD15_PRESET`` (``sd15`` | ``tiny``), ``SD15_DEVICE``
 (default the first GPU; ``cpu`` to run on the CPU; no GPU and no such
-request raises), ``SD15_SEED`` (random-weight seed, 0), ``SD15_MAX_BATCH``,
-``SD15_BATCH_WINDOW_MS``, ``SD15_TOKENIZER_DIR``.  ``MODEL_DIR`` (loading a
-diffusers checkpoint) is not supported yet and raises.
+request raises), ``SD15_MAX_BATCH``, ``SD15_BATCH_WINDOW_MS``,
+``SD15_TOKENIZER_DIR``.  Weights are drawn from seed 0, as the JAX server's
+are without a checkpoint; ``MODEL_DIR`` (loading a diffusers checkpoint) is
+not supported yet and raises.
 """
 
 from __future__ import annotations
@@ -134,14 +135,13 @@ class SDServer:
         if os.environ.get("MODEL_DIR"):
             raise NotImplementedError(
                 "MODEL_DIR is not supported yet by the PyTorch port: it serves "
-                "weights drawn from SD15_SEED; loading a diffusers checkpoint "
+                "weights drawn from seed 0; loading a diffusers checkpoint "
                 "needs a safetensors reader the port does not have yet")
         preset = os.environ.get("SD15_PRESET", "sd15")
         if preset not in ("sd15", "tiny"):
             raise ValueError(f"SD15_PRESET must be sd15 or tiny, got {preset!r}")
         cfg = SD15Config.tiny() if preset == "tiny" else SD15Config.sd15()
-        return SD15Pipeline(cfg, device=os.environ.get("SD15_DEVICE") or None,
-                            seed=int(os.environ.get("SD15_SEED", "0")))
+        return SD15Pipeline(cfg, device=os.environ.get("SD15_DEVICE") or None, seed=0)
 
     # ------------------------------------------------------- micro-batcher
     def submit(self, key: tuple, prompt: str, negative: str,
@@ -204,15 +204,17 @@ class SDServer:
             return _json(422, {"detail": str(e)})
         if not req["prompt"].strip():
             return _json(400, {"detail": "prompt is required"})
+        try:
+            self.pipe.check_request(req["steps"], req["width"], req["height"])
+        except ValueError as e:  # e.g. size not a multiple of the UNet factor
+            return _json(400, {"detail": str(e)})
         t0 = time.time()
         log.info("Generating prompt='%s' steps=%s guidance=%.2f seed=%s size=%sx%s",
                  req["prompt"], req["steps"], req["guidance_scale"],
                  "auto" if req["seed"] is None else req["seed"], req["width"], req["height"])
         key = (req["steps"], req["guidance_scale"], req["width"], req["height"])
-        try:
-            img = self.submit(key, req["prompt"], req["negative_prompt"], req["seed"])
-        except ValueError as e:  # e.g. size not a multiple of the UNet factor
-            return _json(400, {"detail": str(e)})
+        # a pipeline failure is the server's fault: the handler answers 500
+        img = self.submit(key, req["prompt"], req["negative_prompt"], req["seed"])
         png = array_to_png(img)
         latency = time.time() - t0
         log.info("Completed generation in %.2fs", latency)
