@@ -6,11 +6,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. The card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. Build the CUDA kernels from the sources in ``tpustack_torch/ops/csrc``
    (one ``nvcc`` per source, all started together).
-3. Each kernel against its plain PyTorch twin on the card, in bf16, at the
-   shapes the SD1.5 path gives it plus causal/GQA/offset and ragged cases;
-   per shape the kernel's, the twin's and one PyTorch library call's times
-   and the least time the card could take (``bound_ms``).
-4. The main path: the port's SD1.5 server in-process at full width
+3. Each kernel against its plain PyTorch twin on the card, in bf16: flash
+   attention at the shapes the SD1.5 path gives it plus causal/GQA/offset
+   and ragged cases; paged attention at the LLM decode and verify shapes
+   over a scrambled pool with block 0 poisoned, int8, MQA/GQA/MHA and a
+   16-token block.  Per shape the kernel's and the twin's times, a PyTorch
+   library call's where one computes the same function, and the least time
+   the card could take (``bound_ms``).
+4. The SD1.5 path: the port's SD1.5 server in-process at full width
    (``SD15Config.sd15()``, bf16, weights drawn from a seed), one
    ``POST /generate`` at 512x512x30 steps, then 8 concurrent requests that
    ride one micro-batch; PNGs, headers and image content checked, and the
@@ -18,6 +21,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    UNet evaluation with the kernel against the same evaluation on the plain
    attention path, and a torch.profiler breakdown of one UNet evaluation at
    batch 1 and 8 (wall, device kernel time, idle share, top kernels).
+4b. The LLM path: the port's LLM server in-process at Qwen2.5-7B full width
+   (bf16, weights drawn from seed 0, ctx 4096, 8 slots, KV block 64,
+   speculation 4, prefix cache on): one completion carrying a ~256-token
+   system prompt, then 8 concurrent completions that share it (a repetitive
+   body, a >=1024-token prompt outside the cache, a prefix hit with a
+   >512-token suffix).  Statuses, bodies, ``/props``, the exact paged
+   kernel launch count, flash launches and a leak-free pool are checked;
+   then one decode chunk teacher-forced through the kernel and through the
+   gather path, and a torch.profiler breakdown of one decode step at 8 rows.
 5. A JSON line of the end-to-end numbers, then, as the line before the last,
    one JSON line listing every kernel with its numbers.
 6. The last line: ``{"ok": true, "device": {...}}``.
@@ -28,12 +40,15 @@ dense bf16, 3.35 TB/s HBM3); the card's power limit is printed beside them.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import struct
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 
@@ -51,6 +66,21 @@ DEVICE = "cuda"
 KERNEL_SRC = "tpustack_torch/ops/csrc/flash_attention.cu"
 KERNEL_REPLACES = "tpustack/ops/pallas/flash_attention.py:38"
 KERNEL_ALSO_REPLACES = "tpustack/ops/pallas/flash_attention.py:88"
+PAGED_SRC = "tpustack_torch/ops/csrc/paged_attention.cu"
+PAGED_REPLACES = "tpustack/ops/pallas/flash_attention.py:409"
+# Paged kernel vs its float32 twin (both round p to bf16 before P.V; the
+# kernel against its tile's running max, the twin against the row's final
+# max, so single elements differ by about a bf16 ulp): the row max m within
+# 1e-3 absolute (logits of order 1-5, only the float32 summation order
+# differs), the denominator l within 1e-3 relative, acc within 1e-2 relative
+# L2, and the normalised output acc / l within ATOL/RTOL per element and
+# REL_L2 overall.  Rows with no key must give m = -1e30, l = 0, acc = 0.
+PAGED_M_ATOL, PAGED_L_RTOL = 1e-3, 1e-3
+# teacher-forced decode chunk at full width, kernel vs gather path: the two
+# attention results differ by bf16 roundings of p (~1e-3 relative), carried
+# through 28 bf16 layers; the same limit as the UNet check above
+LLM_LOGITS_REL_L2 = 5e-2
+LLM_SLOTS, LLM_CTX, LLM_NEW = 8, 4096, 128
 
 
 def log(msg: str) -> None:
@@ -300,6 +330,410 @@ def profile_unet(torch, pipe, batch: int, evals: int = 3) -> None:
         log(f"    {ms:8.3f} ms  x{n:4d}  {k[:100]}")
 
 
+def paged_bound(b, s, h, hkv, d, lens, blk, nb, int8):
+    """(ms, "operations" | "bytes") for one paged call: the valid blocks'
+    K+V (+ scales) read once, q, the tables and the outputs once; 4*D flops
+    per (query row, valid key) per head."""
+    esize, sbytes = (1, 8) if int8 else (2, 0)
+    blocks = sum(-(-int(n) // blk) for n in lens)
+    nbytes = (blocks * blk * hkv * (2 * d * esize + sbytes) + b * s * h * d * 2
+              + b * nb * 4 + b * 4 + b * s * h * (d + 2) * 4)
+    flops = 4.0 * d * s * h * sum(int(n) for n in lens)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0):
+    """A scrambled pool with block 0 poisoned (1e4, or 127 in int8), ragged
+    lengths up to ``ctx`` (row 0 full, row 1 empty, row 2 mid-block), idle
+    table entries at block 0.  Made on the host from a seed, then moved."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (n_pool, blk, hkv, d)
+    if int8:
+        pk = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        pv = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        pk[0] = pv[0] = 127
+        ks = torch.rand(shape[:3], generator=g) * 0.02 + 1e-3
+        vs = torch.rand(shape[:3], generator=g) * 0.02 + 1e-3
+    else:
+        pk = torch.randn(shape, generator=g).bfloat16()
+        pv = torch.randn(shape, generator=g).bfloat16()
+        pk[0] = pv[0] = 1e4
+        ks = vs = None
+    nb = ctx // blk
+    lens = torch.randint(1, ctx + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0] = ctx
+    if b > 1:
+        lens[1] = 0
+    if b > 2:
+        lens[2] = blk + 3
+    assert sum(-(-int(n) // blk) for n in lens) <= n_pool - 1
+    perm = torch.randperm(n_pool - 1, generator=g) + 1
+    bt = torch.zeros((b, nb), dtype=torch.int32)
+    pos = 0
+    for i in range(b):
+        n = -(-int(lens[i]) // blk)
+        bt[i, :n] = perm[pos:pos + n].int()
+        pos += n
+    q = torch.randn((b, s, h, d), generator=g).bfloat16()
+    to = lambda t: None if t is None else t.to(DEVICE)  # noqa: E731
+    return to(q), to(pk), to(pv), to(bt), to(lens), to(ks), to(vs)
+
+
+def phase_paged_kernels(torch):
+    """Phase 3, paged attention: kernel vs twin on the card."""
+    from tpustack_torch.ops.paged_attention import (gather_pool, paged_attention_partial,
+                                                    paged_attention_partial_ref)
+
+    cases = [  # (label, B, S, H, Hkv, D, pool blocks, blk, ctx, int8, on the LLM path)
+        ("decode", 8, 1, 28, 4, 128, 513, 64, 4096, False, True),
+        ("verify", 8, 5, 28, 4, 128, 513, 64, 4096, False, True),
+        ("int8 verify", 8, 5, 28, 4, 128, 513, 64, 4096, True, False),
+        ("mqa", 4, 1, 8, 1, 128, 129, 64, 2048, False, False),
+        ("gqa 8/2", 4, 5, 8, 2, 128, 129, 64, 2048, False, False),
+        ("mha", 4, 2, 8, 8, 128, 129, 64, 2048, False, False),
+        ("blk16 verify", 8, 5, 28, 4, 128, 2049, 16, 4096, False, False),
+    ]
+    records = []
+    for label, b, s, h, hkv, d, n_pool, blk, ctx, int8, on_path in cases:
+        q, pk, pv, bt, lens, ks, vs = paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx,
+                                                   int8)
+        kw = dict(k_scale=ks, v_scale=vs)
+        acc, m, l = paged_attention_partial(q, pk, pv, bt, lens, **kw)
+        torch.cuda.synchronize()
+        racc, rm, rl = paged_attention_partial_ref(q, pk, pv, bt, lens, **kw)
+        ok_rows = rl > 0
+        empty_ok = bool(torch.equal(l == 0, rl == 0) and (m[~ok_rows] <= -1e29).all()
+                        and (acc[~ok_rows] == 0).all())
+        m_err = (m[ok_rows] - rm[ok_rows]).abs().max().item()
+        l_rel = ((l - rl).abs() / rl.abs().clamp_min(1e-6)).max().item()
+        acc_rel = ((acc - racc).norm() / racc.norm()).item()
+        out, rout = acc / l.clamp_min(1e-30)[..., None], racc / rl.clamp_min(1e-30)[..., None]
+        diff = out - rout
+        err = diff.abs().max().item()
+        rel = (diff.norm() / rout.norm()).item()
+        ok = (empty_ok and m_err <= PAGED_M_ATOL and l_rel <= PAGED_L_RTOL and acc_rel < REL_L2
+              and torch.allclose(out, rout, atol=ATOL, rtol=RTOL) and rel < REL_L2)
+        nb = bt.shape[1]
+        bound_ms, bound_by = paged_bound(b, s, h, hkv, d, lens.tolist(), blk, nb, int8)
+        rec = dict(label=label, shape_q=[b, s, h, d], shape_pool=list(pk.shape),
+                   int8=int8, max_abs_err=err, rel_l2=rel, m_err=m_err, l_rel=l_rel,
+                   acc_rel_l2=acc_rel, ok=bool(ok), on_llm_path=on_path,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rec["ms"] = cuda_ms(lambda: paged_attention_partial(q, pk, pv, bt, lens, **kw), 100)
+        rec["plain_ms"] = cuda_ms(lambda: paged_attention_partial_ref(q, pk, pv, bt, lens,
+                                                                      **kw), 5)
+        # the bisection body's copy: one layer's K and V gathered dense
+        rec["gather_ms"] = cuda_ms(lambda: (gather_pool(pk, bt), gather_pool(pv, bt)), 20)
+        del racc, rm, rl, out, rout, diff
+        torch.cuda.empty_cache()
+        log(f"kernel paged_attention {label}: q {rec['shape_q']} pool {rec['shape_pool']} "
+            f"{'int8 ' if int8 else ''}max_abs_err={err:.3e} (atol {ATOL}, rtol {RTOL}) "
+            f"rel_l2={rel:.3e} (limit {REL_L2}) m_err={m_err:.2e} (limit {PAGED_M_ATOL}) "
+            f"l_rel={l_rel:.2e} (limit {PAGED_L_RTOL}) acc_rel_l2={acc_rel:.2e} "
+            f"{'OK' if ok else 'MISMATCH'} kernel_ms={rec['ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} gather_ms={rec['gather_ms']:.4f} "
+            f"library_ms=none bound_ms={bound_ms:.4f} ({bound_by})")
+        if not ok:
+            raise SystemExit(f"paged_attention disagrees with its twin at {label}")
+        records.append(rec)
+    return records
+
+
+def post_json(url: str, body: dict, timeout: float = 900):
+    """(status, headers, decoded JSON) for a POST, error statuses included."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
+
+
+def _text_of(tok, words, n_tokens: int) -> str:
+    """Text of at least ``n_tokens`` tokens (with BOS) cycling ``words``."""
+    out, i = [], 0
+    while len(tok.encode(" ".join(out))) < n_tokens:
+        out.append(words[i % len(words)])
+        i += 1
+    return " ".join(out)
+
+
+BODY_FIELDS = {"content", "model", "stop", "stopped_eos", "stopped_limit", "tokens_evaluated",
+               "tokens_predicted", "timings"}
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def wait_engine_idle(server, timeout: float = 120.0) -> None:
+    """Wait until the LLM server's engine run has ended and logged its stats:
+    a response reaches its client before the run that served it returns."""
+    t_end = time.time() + timeout
+    while server._engine is not None or server._queue:
+        if time.time() > t_end:
+            raise SystemExit("llm: the engine did not go idle")
+        time.sleep(0.01)
+
+
+def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: int = LLM_NEW):
+    """Phase 4b: the LLM server at Qwen2.5-7B width; returns the launch
+    counts and the measured rates.  ``sizes``: the system prompt's, the
+    long prompt's and the long suffix's token counts (a CPU rehearsal
+    passes the tiny preset and small sizes)."""
+    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.ops.paged_attention import paged_attention_partial
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    os.environ.update({"LLM_PRESET": preset, "LLM_CTX": str(LLM_CTX),
+                       "LLM_MAX_BATCH": str(LLM_SLOTS), "TPUSTACK_SPEC_TOKENS": "4",
+                       "TPUSTACK_PREFIX_CACHE": "1", "TPUSTACK_KV_BLOCK": "64"})
+    on_card = DEVICE == "cuda"
+    t0 = time.perf_counter()
+    server = LLMServer()
+    sync(torch)
+    gen, tok, cfg = server.gen, server.tok, server.gen.cfg
+    log(f"llm: Qwen2.5-7B width ({cfg.n_layers} layers, dim {cfg.dim}, vocab "
+        f"{cfg.vocab_size}), {gen.cache_dtype}, ctx {cfg.max_seq}, {server.max_batch} slots, "
+        f"pool {tuple(server.paged.arrays[0]['k'].shape)}, built in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9 if on_card else 0:.2f} GB allocated; "
+        f"tokenizer {type(tok).__name__}")
+    url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+    words = ("the cluster schedules every job on the accelerator pool and records its "
+             "throughput latency and memory use in the shared ledger").split()
+    system = "System: " + _text_of(tok, words, sizes[0])
+    rep = " ".join(["alpha beta gamma delta"] * (24 if on_card else 1))
+    long_body = _text_of(tok, ("a long report on device memory bandwidth kernels "
+                               "and queues").split(), sizes[1])
+    suffix = _text_of(tok, "each request shares the cached system prompt".split(), sizes[2])
+    bodies = [
+        {"prompt": system + " Repeat: " + rep},                         # drafts accepted
+        {"prompt": system + " Report: " + long_body, "cache_prompt": False},  # panel flash
+        {"prompt": system + " Context: " + suffix},                     # streaming flash
+    ] + [{"prompt": system + f" Question {i}: what ran on node {i} today?"}
+         for i in range(LLM_SLOTS - 3)]
+    try:
+        # warm-up outside the counts (CUDA and cuBLAS initialisation)
+        status, _, _ = post_json(url + "/completion", {"prompt": "warm up", "n_predict": 4,
+                                                       "temperature": 0,
+                                                       "cache_prompt": False})
+        assert status == 200, status
+        wait_engine_idle(server)
+        sync(torch)
+        runs0 = len(server.run_log)
+        spec0 = (server._spec_drafted, server._spec_accepted)
+        paged_attention_partial.launches = 0
+        flash_attention.launches = 0
+        # one solo request carrying the system prompt (the cache keeps it)
+        t1 = time.perf_counter()
+        solo = post_json(url + "/completion", {"prompt": system + " Question: what is the "
+                                               "plan?", "n_predict": n_new,
+                                               "temperature": 0})
+        solo_wall = time.perf_counter() - t1
+        results = [None] * LLM_SLOTS
+
+        def send(i):
+            results[i] = post_json(url + "/completion",
+                                   dict(bodies[i], n_predict=n_new, temperature=0))
+
+        t2 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(LLM_SLOTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batch_wall = time.perf_counter() - t2
+        wait_engine_idle(server)
+        sync(torch)
+        paged_launches = paged_attention_partial.launches
+        flash_launches = flash_attention.launches
+        runs = list(server.run_log)[runs0:]
+        props = json.loads(urllib.request.urlopen(url + "/props", timeout=60).read())
+    finally:
+        server.stop()
+
+    statuses = [solo[0]] + [r[0] for r in results]
+    log(f"llm: statuses {statuses}")
+    assert all(st == 200 for st in statuses), (statuses, [r[2] for r in results])
+    for _, _, out in [solo] + results:
+        assert BODY_FIELDS <= set(out), sorted(out)
+        assert out["tokens_predicted"] >= 1 and isinstance(out["content"], str)
+    prompt_tokens = [r[2]["tokens_evaluated"] for r in results]
+    log(f"llm: prompt tokens solo {solo[2]['tokens_evaluated']}, batch {prompt_tokens}; "
+        f"generated {[r[2]['tokens_predicted'] for r in results]}")
+    assert prompt_tokens[1] >= sizes[1], prompt_tokens
+    steps = sum(r["kernel_forward_steps"] for r in runs)
+    assert all(r["decode_kernel"] == "paged_flash" and r["kernel_gather_dispatches"] == 0
+               for r in runs), runs
+    spec = props["speculative"]
+    accepted = spec["accepted_tokens"] - spec0[1]
+    drafted = spec["drafted_tokens"] - spec0[0]
+    hits = props["prefix_cache"]["hits"]
+    log(f"llm: /props decode_kernel {props['decode_kernel']}, speculative drafted "
+        f"{drafted} accepted {accepted}, prefix cache {props['prefix_cache']}")
+    # CPU tensors take the twins, which launch nothing
+    want_paged = cfg.n_layers * steps if on_card else 0
+    want_flash = 2 * cfg.n_layers if on_card else 0
+    log(f"llm: {len(runs)} engine run(s), {steps} kernel forward steps; paged_attention "
+        f"launches {paged_launches} (expected {cfg.n_layers} x {steps} = {want_paged}); "
+        f"flash_attention launches {flash_launches} (expected {want_flash}: the "
+        f">=1024-token prompt's panel prefill and the long suffix's streaming prefill, "
+        f"one per layer)")
+    assert props["decode_kernel"] == "paged_flash", props["decode_kernel"]
+    assert accepted > 0 or not on_card, spec
+    assert hits > 0, props["prefix_cache"]
+    assert paged_launches == want_paged and steps > 0, (paged_launches, steps)
+    assert flash_launches == want_flash, flash_launches
+    rt = server.paged
+    rt.cache.clear()
+    assert rt.pool.n_free == rt.pool.capacity_blocks, rt.pool.stats()
+    log(f"llm: after cache.clear() {rt.pool.n_free} of {rt.pool.capacity_blocks} blocks free")
+    st = solo[2]["timings"]
+    gen_tokens = sum(r[2]["tokens_predicted"] for r in results)
+    e2e = dict(
+        solo_ttft_ms=st["prompt_ms"], solo_decode_tokens_per_s=st["predicted_per_second"],
+        solo_tokens=solo[2]["tokens_predicted"], solo_wall_s=solo_wall,
+        batch_tokens=gen_tokens, batch_wall_s=batch_wall,
+        aggregate_tokens_per_s=gen_tokens / batch_wall, spec_drafted=drafted,
+        spec_accepted=accepted, prefix_hits=hits, forward_steps=steps)
+    log(f"llm: solo TTFT {st['prompt_ms']:.1f} ms, decode {st['predicted_per_second']:.2f} "
+        f"tokens/s ({solo[2]['tokens_predicted']} tokens, {solo_wall:.2f} s wall); 8 "
+        f"concurrent: {gen_tokens} tokens in {batch_wall:.2f} s = "
+        f"{gen_tokens / batch_wall:.2f} tokens/s aggregate")
+    e2e["teacher_rel_l2"] = teacher_forced_check(torch, gen, rt)
+    if on_card:
+        e2e.update(profile_decode(torch, gen, rt))
+    del server, rt, gen
+    return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e)
+
+
+def _decode_state(torch, gen, rt, lengths, seed=0):
+    """Eight rows prefilled from random prompts of ``lengths`` into fresh
+    pool blocks; returns the host state for ``Generator._decode_scan_paged``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    B = len(lengths)
+    bt = np.zeros((B, rt.blocks_per_seq), np.int32)
+    firsts, blocks = [], []
+    for i, n in enumerate(lengths):
+        ids = rt.pool.alloc_tokens(n + 16)
+        blocks += ids
+        bt[i, :len(ids)] = ids
+        bucket = gen._bucket(n)
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :n] = rng.randint(3, gen.cfg.vocab_size, n)
+        f, _ = gen._admit_fused_paged(tokens, rt.arrays, bt[[i]], np.array([n]),
+                                      np.array([n + 16]), [0], np.zeros(1, np.float32),
+                                      np.zeros(1, np.int64), np.ones(1, bool))
+        firsts.append(f)
+    state = dict(first=torch.cat(firsts)[:, None], cur=np.array(lengths, np.int64),
+                 active=np.ones(B, np.int64), bt=bt, gens=[None] * B,
+                 temp=np.zeros(B, np.float32), topk=np.zeros(B, np.int64),
+                 greedy=np.ones(B, bool))
+    return state, blocks
+
+
+def teacher_forced_check(torch, gen, rt, steps: int = 16) -> float:
+    """One decode chunk from one state, teacher-forced through the paged
+    kernel and through the gather path with the plain partial; returns the
+    logits' relative L2 (limit LLM_LOGITS_REL_L2)."""
+    import numpy as np
+
+    lengths = [min(n, gen.cfg.max_seq - steps - 1)
+               for n in (3000, 2100, 1500, 900, 513, 64, 17, 1)]
+    st, blocks = _decode_state(torch, gen, rt, lengths)
+    teacher = torch.as_tensor(np.random.RandomState(1).randint(3, gen.cfg.vocab_size,
+                                                               (8, steps)), device=DEVICE)
+    out = {}
+    for flash in (True, False):
+        *_, logits = gen._decode_scan_paged(st["first"], st["cur"], st["active"], rt.arrays,
+                                            st["bt"], st["gens"], st["temp"], st["topk"],
+                                            st["greedy"], steps, flash=flash, teacher=teacher)
+        out[flash] = logits
+    rt.pool.decref(blocks)
+    a, b = out[True], out[False]
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(a).all())
+    log(f"llm: teacher-forced {steps}-step chunk at rows {lengths}: logits relative L2 "
+        f"kernel vs gather {rel:.3e} (limit {LLM_LOGITS_REL_L2}), argmax agreement "
+        f"{agree:.3f}, finite={finite}")
+    assert finite and rel < LLM_LOGITS_REL_L2, rel
+    return rel
+
+
+def profile_decode(torch, gen, rt, evals: int = 5) -> dict:
+    """Where one decode step at 8 rows goes: wall per step (host clock,
+    synchronised), device kernel time per step (torch.profiler), the idle
+    share, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    st, blocks = _decode_state(torch, gen, rt, [2048] * 8, seed=2)
+
+    def step():
+        gen._decode_scan_paged(st["first"], st["cur"], st["active"], rt.arrays, st["bt"],
+                               st["gens"], st["temp"], st["topk"], st["greedy"], 1,
+                               flash=True)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(evals):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / evals * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(evals):
+            step()
+        torch.cuda.synchronize()
+    rt.pool.decref(blocks)
+    kernels = [(e.key, e.self_device_time_total / evals / 1e3, e.count // evals)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        log("profile decode: device time not measured (the profiler saw no kernels)")
+        return dict(decode_step_wall_ms=wall_ms)
+    busy = sum(ms for _, ms, _ in kernels)
+    paged = sum(ms for k, ms, _ in kernels if "paged_" in k)
+    log(f"profile decode step (8 rows at 2048 tokens, 1 step): wall {wall_ms:.2f} ms, device "
+        f"kernels {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(n for _, _, n in kernels)} kernel launches/step, paged_attention "
+        f"{paged:.3f} ms ({paged / busy:.3f} of device time)")
+    for k, ms, n in sorted(kernels, key=lambda r: -r[1])[:8]:
+        log(f"    {ms:8.3f} ms  x{n:4d}  {k[:100]}")
+    return dict(decode_step_wall_ms=wall_ms, decode_step_device_ms=busy,
+                decode_idle_share=1 - busy / wall_ms, decode_paged_ms=paged)
+
+
+def build_kernels() -> dict:
+    """Phase 2: one nvcc per source, all started together; {name: log}."""
+    from tpustack_torch.ops import _build
+
+    logs, errors = {}, []
+
+    def one(name):
+        try:
+            logs[name] = _build.build(name)
+        except Exception as e:  # reported below, after every build has ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in ("flash_attention",
+                                                                 "paged_attention")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return logs
+
+
 def main() -> int:
     import torch
 
@@ -315,41 +749,65 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
 
-    # phase 2: build every kernel of the path
-    from tpustack_torch.ops import _build
-
+    # phase 2: build every kernel of the paths, in parallel
     t0 = time.perf_counter()
-    text = _build.build("flash_attention")
+    logs = build_kernels()
     log(f"kernels built in {time.perf_counter() - t0:.2f}s")
     # ptxas: registers and spills per instantiation
-    log("\n".join(f"flash_attention: {ln.strip()}" for ln in text.splitlines()
-                  if "registers" in ln or "spill" in ln))
+    for name, text in logs.items():
+        log("\n".join(f"{name}: {ln.strip()}" for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln))
 
     # phase 3: kernels vs their twins
     records = phase_kernels(torch)
+    paged_records = phase_paged_kernels(torch)
 
-    # phase 4: the main path
+    # phase 4: the SD1.5 path; its pipeline is freed before the LLM's weights load
     main_path = phase_main_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 5: the kernels line, at the main path's batch-1 level-0 shape
+    # phase 4b: the LLM path
+    llm = phase_llm(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 5: the kernels line, each at its main path's most frequent shape
     head = records[0]
     detail = [{k: r[k] for k in ("label", "shape_q", "shape_kv", "ms", "plain_ms",
                                  "library_ms", "bound_ms", "max_abs_err", "rel_l2")}
               for r in records]
+    paged_head = paged_records[0]
+    paged_detail = [{k: r[k] for k in ("label", "shape_q", "shape_pool", "int8", "ms",
+                                       "plain_ms", "gather_ms", "bound_ms", "bound_by",
+                                       "max_abs_err", "rel_l2", "m_err", "l_rel")}
+                    for r in paged_records]
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "also_replaces": KERNEL_ALSO_REPLACES,
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + llm["flash_launches"],
+        "launches_by_path": {"sd15": main_path["launches"], "llm": llm["flash_launches"]},
         "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL and REL_L2
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "rel_l2": max(r["rel_l2"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["label"], "shapes": detail,
+    }, {
+        "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+        "replaces": PAGED_REPLACES, "launches": llm["paged_launches"],
+        "launches_by_path": {"llm": llm["paged_launches"]},
+        "ok": all(r["ok"] for r in paged_records),
+        "max_abs_err": max(r["max_abs_err"] for r in paged_records),
+        "rel_l2": max(r["rel_l2"] for r in paged_records),
+        "ms": paged_head["ms"], "plain_ms": paged_head["plain_ms"],
+        "bound_ms": paged_head["bound_ms"], "bound_by": paged_head["bound_by"],
+        "library_ms": None, "gather_ms": paged_head["gather_ms"],
+        "shape": paged_head["label"], "shapes": paged_detail,
     }]
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
                                                        "dispatches", "unet_rel_l2")},
-                    "card": smi}))
+                    "llm": llm["e2e"], "card": smi}))
     log(json.dumps({"kernels": kernels}))  # the line before the last
     # phase 6
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

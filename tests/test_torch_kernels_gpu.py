@@ -12,12 +12,25 @@ element, and 1e-2 relative L2 per case.  Both sides round the output to bf16
 probabilities to bf16 before P.V; a typical output of N(0,1) inputs over 4096
 keys is ~0.03, and the L2 limit catches faults spread thin over every row (a
 dropped K tile, a wrong rescale) that an element-wise limit would not.
+
+The paged kernel is held to its twin at the limits of ``chip_smoke.py``
+phase 3 (``PAGED_TOL`` there, restated here): the row max ``m`` within 1e-3
+absolute (logits of order 1-5; only float32 summation order differs), the
+denominator ``l`` within 1e-3 relative (float32 sums of exponentials in
+another order), the unnormalised ``acc`` within 1e-2 relative L2, and the
+normalised output ``acc / l`` within 4e-3 absolute + 1e-2 relative per
+element and 1e-2 relative L2.  Both sides round p to bf16 before P.V, but
+the kernel rounds it against the running max of its tile (then rescales),
+the twin against the row's final max, so single elements differ by about a
+bf16 ulp; the L2 limits catch a dropped key tile or a wrong rescale.
 """
 
 import pytest
 import torch
 
 from tpustack_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from tpustack_torch.ops.paged_attention import (paged_attention_partial,
+                                                paged_attention_partial_ref)
 
 CASES = [
     ((2, 4096, 8, 40), (2, 4096, 8, 40), {}),
@@ -65,3 +78,97 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 2, 64, 40, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
+
+
+# ----------------------------------------------------------------- paged
+PAGED_CASES = [  # (label, B, S, H, Hkv, D, N pool blocks, blk, ctx, int8)
+    ("decode", 8, 1, 28, 4, 128, 513, 64, 4096, False),
+    ("verify", 8, 5, 28, 4, 128, 513, 64, 4096, False),
+    ("int8", 8, 5, 28, 4, 128, 513, 64, 4096, True),
+    ("mqa", 4, 1, 8, 1, 128, 129, 64, 2048, False),
+    ("mha", 4, 2, 8, 8, 128, 129, 64, 2048, False),
+    ("blk16", 8, 5, 28, 4, 128, 2049, 16, 4096, False),
+    ("d64", 3, 3, 8, 2, 64, 97, 32, 1024, True),
+]
+
+
+def paged_inputs(dev, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0):
+    """A scrambled pool with block 0 poisoned (1e4, or 127 in int8),
+    ragged lengths up to ``ctx`` (row 0 full, row 1 empty, one mid-block),
+    and idle table entries at block 0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (n_pool, blk, hkv, d)
+    if int8:
+        pk = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        pv = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        pk[0] = 127
+        pv[0] = 127
+        ks = torch.rand(shape[:3], generator=g) * 0.02 + 1e-3
+        vs = torch.rand(shape[:3], generator=g) * 0.02 + 1e-3
+    else:
+        pk = torch.randn(shape, generator=g).bfloat16()
+        pv = torch.randn(shape, generator=g).bfloat16()
+        pk[0] = 1e4
+        pv[0] = 1e4
+        ks = vs = None
+    nb = ctx // blk
+    lens = torch.randint(1, ctx + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0] = ctx
+    if b > 1:
+        lens[1] = 0
+    if b > 2:
+        lens[2] = blk + 3
+    assert sum(-(-int(n) // blk) for n in lens) <= n_pool - 1
+    perm = torch.randperm(n_pool - 1, generator=g) + 1
+    bt = torch.zeros((b, nb), dtype=torch.int32)
+    pos = 0
+    for i in range(b):
+        n = -(-int(lens[i]) // blk)
+        bt[i, :n] = perm[pos:pos + n].int()
+        pos += n
+    q = torch.randn((b, s, h, d), generator=g).bfloat16()
+    to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    return to(q), to(pk), to(pv), to(bt), to(lens), to(ks), to(vs)
+
+
+def paged_compare(got, ref):
+    """Max |err| of the normalised output; asserts every stated limit."""
+    (a, m, l), (ra, rm, rl) = got, ref
+    ok = rl > 0
+    assert torch.equal(l == 0, rl == 0)
+    assert (m[~ok] <= -1e29).all() and (a[~ok] == 0).all()
+    assert (m[ok] - rm[ok]).abs().max() <= 1e-3
+    torch.testing.assert_close(l, rl, rtol=1e-3, atol=1e-6)
+    assert (a - ra).norm() <= 1e-2 * ra.norm()
+    out = a / l.clamp_min(1e-30)[..., None]
+    rout = ra / rl.clamp_min(1e-30)[..., None]
+    torch.testing.assert_close(out, rout, atol=4e-3, rtol=1e-2)
+    assert (out - rout).norm() <= 1e-2 * rout.norm()
+    return (out - rout).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_kernel_matches_twin(cuda, case):
+    q, pk, pv, bt, lens, ks, vs = paged_inputs(cuda, *case[1:])
+    before = paged_attention_partial.launches
+    got = paged_attention_partial(q, pk, pv, bt, lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_partial.launches == before + 1
+    ref = paged_attention_partial_ref(q, pk, pv, bt, lens, k_scale=ks, v_scale=vs)
+    paged_compare(got, ref)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_what_it_cannot_take(cuda):
+    q, pk, pv, bt, lens, _, _ = paged_inputs(cuda, 2, 1, 4, 2, 128, 9, 64, 256, False)
+    with pytest.raises(ValueError, match="bf16"):
+        paged_attention_partial(q.float(), pk, pv, bt, lens)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention_partial(q, pk, pv, bt.long(), lens)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        paged_attention_partial(q[..., :40].contiguous(), pk[..., :40].contiguous(),
+                                pv[..., :40].contiguous(), bt, lens)
+    with pytest.raises(ValueError, match="query"):
+        paged_attention_partial(torch.zeros(2, 40, 4, 128, device=cuda, dtype=torch.bfloat16),
+                                pk, pv, bt, lens)

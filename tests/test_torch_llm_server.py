@@ -1,0 +1,216 @@
+"""The port's LLM server contract on the CPU, tiny preset, over real HTTP.
+
+The llama.cpp surface of ``tpustack/serving/llm_server.py`` on the port's
+standard-library server: the completion body fields, tokenize/detokenize,
+the OpenAI chat shape, ``/props``, 429 + ``Retry-After`` when the KV pool
+cannot cover a request, and the clear refusals of what the port does not
+serve yet (streaming, the dense solo engine, tensor parallelism, weight-only
+int8, checkpoints, tokenizer directories, draft-model drafting).
+"""
+
+import json
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from tpustack_torch.models.llama import LlamaConfig
+from tpustack_torch.models.llm_generate import Generator
+from tpustack_torch.models.text_tokenizer import ByteTokenizer, load_text_tokenizer
+from tpustack_torch.serving import llm_server
+from tpustack_torch.serving.llm_server import LLMServer, build_paged
+from tpustack_torch.serving.speculative import SpecConfig
+
+
+@pytest.fixture(scope="module")
+def server():
+    gen = Generator(LlamaConfig.tiny(max_seq=128), dtype=torch.float32, device="cpu")
+    srv = LLMServer(gen, ByteTokenizer(512), max_batch=4, paged=build_paged(gen, 4),
+                    spec=SpecConfig(tokens=4))
+    srv.url = f"http://127.0.0.1:{srv.start(host='127.0.0.1', port=0)}"
+    yield srv
+    srv.stop()
+
+
+def _call(url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def test_completion_body_and_determinism(server):
+    body = {"prompt": "the quick brown fox", "n_predict": 12, "temperature": 0}
+    status, _, out = _call(server.url + "/completion", body)
+    assert status == 200
+    assert set(out) >= {"content", "model", "stop", "stopped_eos", "stopped_limit",
+                        "tokens_evaluated", "tokens_predicted", "timings"}
+    assert set(out["timings"]) == {"prompt_n", "prompt_ms", "predicted_n", "predicted_ms",
+                                   "predicted_per_second"}
+    assert out["tokens_evaluated"] == len("the quick brown fox") + 1  # bytes + BOS
+    assert out["stopped_eos"] or out["tokens_predicted"] == 12
+    assert out["stopped_limit"] == (not out["stopped_eos"])
+    again = _call(server.url + "/completion", dict(body, speculative=False))[2]
+    assert again["content"] == out["content"]  # greedy: speculation changes nothing
+
+
+def test_concurrent_completions_share_the_prefix_cache(server):
+    system = "Be brief. " * 4  # 41 tokens with BOS: two whole 16-token blocks
+    _call(server.url + "/completion", {"prompt": system + "hi", "n_predict": 4,
+                                        "temperature": 0})
+    hits0 = _call(server.url + "/props")[2]["prefix_cache"]["hits"]
+    res = [None] * 4
+
+    def go(i):
+        res[i] = _call(server.url + "/completion",
+                       {"prompt": system + f"q{i} " * (i + 1), "n_predict": 8,
+                        "temperature": 0})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(r[0] == 200 and r[2]["tokens_predicted"] >= 1 for r in res)
+    props = _call(server.url + "/props")[2]
+    assert props["prefix_cache"]["hits"] >= hits0 + 4
+    assert props["paged_kv"]["used_blocks"] == props["prefix_cache"]["entries"]
+
+
+def test_props(server):
+    status, _, p = _call(server.url + "/props")
+    assert status == 200
+    assert p["n_ctx"] == 128 and p["slots"] == 4
+    assert p["decode_kernel"] == "gather"  # TPUSTACK_PAGED_FLASH=auto: the kernel on CUDA
+    assert p["paged_kv"]["enabled"] and p["paged_kv"]["block_tokens"] == 16
+    assert p["speculative"]["enabled"] and p["speculative"]["tokens"] == 4
+    assert {"drafted_tokens", "accepted_tokens"} <= set(p["speculative"])
+    assert _call(server.url + "/health")[2] == {"status": "ok"}
+    assert _call(server.url + "/healthz")[2]["engine"]["paged_kv"] is True
+
+
+def test_tokenize_round_trip(server):
+    toks = _call(server.url + "/tokenize", {"content": "héllo wörld"})[2]["tokens"]
+    assert toks[0] != 1  # no BOS
+    assert _call(server.url + "/detokenize", {"tokens": toks})[2]["content"] == "héllo wörld"
+
+
+def test_chat_completion_shape(server):
+    status, _, out = _call(server.url + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hi"}], "max_tokens": 5, "temperature": 0})
+    assert status == 200
+    assert out["object"] == "chat.completion" and out["id"].startswith("chatcmpl-")
+    choice = out["choices"][0]
+    assert choice["message"]["role"] == "assistant"
+    assert choice["finish_reason"] in ("stop", "length")
+    u = out["usage"]
+    assert u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
+    assert _call(server.url + "/v1/chat/completions", {"messages": []})[0] == 400
+
+
+def test_full_pool_answers_429_with_retry_after(server):
+    pool = server.paged.pool
+    server.paged.cache.clear()
+    held = pool.alloc_tokens((pool.n_free - 1) * pool.block)  # one block left
+    try:
+        status, headers, out = _call(server.url + "/completion",
+                                     {"prompt": "x" * 40, "n_predict": 40})
+        assert status == 429
+        assert int(headers["Retry-After"]) >= 1
+        assert headers["X-Shed-Reason"] == "out_of_kv_blocks"
+        assert "out of KV blocks" in out["error"]
+    finally:
+        pool.decref(held)
+    assert _call(server.url + "/completion", {"prompt": "x" * 40, "n_predict": 4})[0] == 200
+    server.paged.cache.clear()
+    assert pool.n_free == pool.capacity_blocks
+
+
+def test_concurrent_stress_leaves_the_pool_whole(server):
+    """More clients than slots and cores, with a short switch interval:
+    every request is answered (200, or 429 while the pool is short) and,
+    once idle, every block is back."""
+    statuses, lock = [], threading.Lock()
+
+    def go(i):
+        st = _call(server.url + "/completion", {"prompt": f"stress {i} " * (1 + i % 5),
+                                                 "n_predict": 6 + i % 7, "temperature": 0})[0]
+        with lock:
+            statuses.append(st)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(24)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(statuses) == 24 and set(statuses) <= {200, 429} and 200 in statuses
+    server.paged.cache.clear()
+    assert server.paged.pool.n_free == server.paged.pool.capacity_blocks
+
+
+def test_bad_requests_answer_400(server):
+    url = server.url + "/completion"
+    assert _call(url, {"prompt": ""})[0] == 400
+    assert _call(url, {"prompt": "x", "seed": "seven"})[0] == 400
+    status, _, out = _call(url, {"prompt": "x", "stream": True})
+    assert status == 400 and "stream" in out["error"]
+    assert _call(url, {"prompt": "x" * 200})[0] == 400  # longer than ctx 128
+    big = _call(url, {"prompt": "x", "n_predict": 10_000})  # clamped to ctx: served
+    assert big[0] == 200
+    status, _, out = _call(server.url + "/v1/chat/completions",
+                           {"messages": [{"role": "user", "content": "x"}], "stream": True})
+    assert status == 400 and "stream" in out["error"]["message"]
+
+
+@pytest.mark.parametrize("env,what", [
+    ({"LLM_TP": "2"}, "LLM_TP"),
+    ({"LLM_QUANT": "int8"}, "LLM_QUANT"),
+    ({"MODEL_DIR": "/nonexistent"}, "MODEL_DIR"),
+])
+def test_unported_options_refuse_at_startup(monkeypatch, env, what):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=what):
+        llm_server._build_generator()
+
+
+def test_unported_engines_and_drafters_refuse(monkeypatch, server):
+    with pytest.raises(NotImplementedError, match="LLM_MAX_BATCH"):
+        LLMServer(server.gen, server.tok, max_batch=1)
+    monkeypatch.setenv("TPUSTACK_PAGED_KV", "0")
+    with pytest.raises(NotImplementedError, match="TPUSTACK_PAGED_KV"):
+        LLMServer(server.gen, server.tok, max_batch=2)
+    monkeypatch.delenv("TPUSTACK_PAGED_KV")
+    monkeypatch.setenv("TPUSTACK_SPEC_DRAFT", "tiny")
+    with pytest.raises(NotImplementedError, match="TPUSTACK_SPEC_DRAFT"):
+        llm_server.build_spec()
+    monkeypatch.setenv("LLM_TOKENIZER_DIR", "/some/dir")
+    with pytest.raises(NotImplementedError, match="LLM_TOKENIZER_DIR"):
+        load_text_tokenizer(152064)
+
+
+def test_env_boot_tiny_on_cpu(monkeypatch):
+    """``LLM_PRESET=tiny LLM_DEVICE=cpu``: the README's boot, end to end."""
+    monkeypatch.setenv("LLM_PRESET", "tiny")
+    monkeypatch.setenv("LLM_DEVICE", "cpu")
+    srv = LLMServer()
+    try:
+        assert srv.gen.cfg.max_seq == 128 and srv.gen.device.type == "cpu"
+        assert isinstance(srv.tok, ByteTokenizer)  # vocab 512 < the BPE's
+        content, stats, _ = srv.complete("hello", n_predict=3, temperature=0)
+        assert stats["generated_tokens"] >= 1 and isinstance(content, str)
+    finally:
+        srv.stop()

@@ -1,0 +1,713 @@
+"""Continuous batching over a paged KV pool: the port of
+``tpustack/models/llm_continuous.py::ContinuousEngine`` (paged engine only).
+
+llama.cpp slot semantics: ``B`` persistent slots; a request joins at the
+next chunk boundary and a finished row is answered and its slot freed at
+once.  Each slot's cache line is a block table into the shared pool
+(``serving.kv_pool.PagedKVRuntime``); a prefix-cache hit installs the shared
+blocks in the table and prefills only the suffix.
+
+The loop keeps ``depth`` plain decode chunks in flight (each chunk's first
+token is the previous chunk's last, on the device) and fetches one chunk
+behind the frontier; admissions are dispatched between chunks and resolved
+when their first tokens are fetched.  With ``spec`` set, whenever the host
+is caught up and some slot has a prompt-lookup draft, one verify step scores
+up to ``spec.tokens`` drafts per slot in one forward pass instead.
+
+The host holds the per-slot frontier ``cur``, ``active`` and the sampling
+settings (the JAX engine keeps them on the device); the device holds the
+pool, the chunk's first tokens and the token blocks in flight.
+
+Stats keep the JAX engine's ``decode_kernel``,
+``kernel_paged_flash_dispatches`` and ``kernel_gather_dispatches``, and add
+``kernel_forward_steps``: forward passes that read the pool through the
+chosen view (``chunk`` per plain dispatch, one per verify), so a run's paged
+kernel launches are exactly ``n_layers * kernel_forward_steps``.
+
+Left out: QoS preemption, the host RAM tier, chunked prefill, flight
+records, tenant ledger, tracing and the sanitizer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpustack_torch.models.llm_generate import Generator, SampleConfig, resolve_paged_flash
+from tpustack_torch.serving.kv_pool import OutOfBlocks, eta_until_blocks
+from tpustack_torch.utils import get_logger
+
+log = get_logger("models.llm_continuous")
+
+
+@dataclasses.dataclass
+class SlotRequest:
+    """One request.  ``on_done(tokens, stats)``: once, at retirement
+    (``tokens`` None and ``stats["error"]`` when admission failed).
+    ``seed``: the slot generator's seed (None draws one).
+
+    ``prefix``: ``(n_cached, block_ids)``, shared pool blocks the lookup
+    already incref'd; ``kv_blocks``: fresh blocks the server allocated at
+    admission (None lets the engine allocate); ``on_prefill_blocks(ids)``:
+    the prompt's full blocks once prefill has landed (the cache insert).
+    ``speculative=False`` keeps this row from drafting."""
+
+    ids: List[int]
+    max_new: int
+    sample: SampleConfig
+    on_done: Optional[Callable[[Optional[List[int]], Dict], None]] = None
+    seed: Optional[int] = None
+    prefix: Optional[Tuple[int, list]] = None
+    kv_blocks: Optional[List[int]] = None
+    on_prefill_blocks: Optional[Callable[[List[int]], None]] = None
+    speculative: bool = True
+
+
+class _Slot:
+    __slots__ = ("req", "out", "budget", "gen_id", "t0", "prefill_s", "dispatched", "done",
+                 "pending", "cached", "blocks", "alloc", "spec_ema", "spec_idle",
+                 "stride_ema")
+
+    def __init__(self):
+        self.req: Optional[SlotRequest] = None
+        self.out: List[int] = []
+        self.budget = 0
+        self.gen_id = -1
+        self.t0 = 0.0
+        self.prefill_s = 0.0
+        self.dispatched = 0   # decode steps dispatched for this occupancy
+        self.done = True
+        self.pending = False  # admission dispatched, first token not fetched
+        self.cached = 0       # prompt tokens served by the prefix cache
+        self.blocks: List[int] = []  # pool blocks this slot holds a reference on
+        self.alloc = 0        # tokens this slot's allocation covers
+        self.spec_ema = 1.0
+        self.spec_idle = 0
+        self.stride_ema = 1.0
+
+
+class _PendingWave:
+    """A dispatched admission group whose first tokens are not fetched yet."""
+
+    __slots__ = ("rows", "firsts_dev", "t0", "ready", "block_inserts")
+
+    def __init__(self, rows, firsts_dev, t0, ready, block_inserts=()):
+        self.rows = rows                    # [(slot, req, budget)]
+        self.firsts_dev = firsts_dev
+        self.t0 = t0
+        self.ready = ready                  # CUDA event after the admission, or None
+        self.block_inserts = list(block_inserts)  # [(req, prompt block ids)]
+
+
+class ContinuousEngine:
+    """Drives :class:`Generator`'s paged programs over persistent slots.
+    ``run(feed)`` decodes until every admitted request is answered and
+    ``feed()`` returns None."""
+
+    def __init__(self, gen: Generator, paged, slots: int = 8, chunk: int = 16,
+                 stop_tokens: Tuple[int, ...] = (), depth: int = 2,
+                 paged_flash: Optional[bool] = None, spec=None,
+                 on_spec: Optional[Callable[[int, int], None]] = None):
+        if paged is None:
+            raise ValueError("the port's engine is paged only: pass a PagedKVRuntime")
+        if gen.cfg.max_seq != paged.max_seq:
+            raise ValueError(f"paged runtime max_seq {paged.max_seq} != engine config "
+                             f"{gen.cfg.max_seq}")
+        self.gen = gen
+        self.paged = paged
+        self.B = slots
+        self.chunk = chunk
+        self.stop_tokens = stop_tokens
+        self.depth = depth
+        self.spec = spec if (spec is not None and getattr(spec, "tokens", 0) > 0) else None
+        self._drafter = None
+        if self.spec is not None:
+            self._drafter = self.spec.drafter
+            if self._drafter is None:
+                from tpustack_torch.serving.speculative import PromptLookupDrafter
+
+                self._drafter = PromptLookupDrafter(ngram_max=self.spec.ngram_max,
+                                                    ngram_min=self.spec.ngram_min)
+        self.on_spec = on_spec
+        self.paged_flash = (resolve_paged_flash(gen.device) if paged_flash is None
+                            else bool(paged_flash))
+        self._draft_memo: Dict[int, Tuple[Tuple[int, int, int], List[int]]] = {}
+        self._bt = np.zeros((slots, paged.blocks_per_seq), np.int32)
+        self._slots_view = None
+        self._pending: List[_PendingWave] = []
+        self._to_park: List[int] = []
+        self._retired_tokens = 0
+        self._marks_lock = threading.Lock()  # guards _wave_ctr/_first/_last (server reads)
+        self._reset_counters()
+
+    def _reset_counters(self):
+        self._spec_drafted = self._spec_accepted = 0
+        self._spec_dispatches = self._plain_steps = 0
+        self._gather_dispatches = self._flash_dispatches = 0
+        self._forward_steps = 0
+        with self._marks_lock:
+            self._wave_ctr, self._wave_first, self._wave_last = 0, 0.0, 0.0
+
+    # ------------------------------------------------------------ state
+    def _fresh_state(self):
+        """Host per-slot state plus the device first-token column.  The pool
+        is the persistent store (``self.paged.arrays``), written in place."""
+        B = self.B
+        self._bt[:] = 0
+        return {
+            "cur": np.zeros(B, np.int64),
+            "active": np.zeros(B, np.int64),
+            "temp": np.zeros(B, np.float32),
+            "topk": np.zeros(B, np.int64),
+            "greedy": np.ones(B, bool),
+            "gens": [None] * B,
+            "first": torch.zeros((B, 1), dtype=torch.int64, device=self.gen.device),
+        }
+
+    # ------------------------------------------------------ paged plumbing
+    def _release_blocks(self, req: Optional[SlotRequest]) -> None:
+        """Drop the references a not-yet-admitted request carries."""
+        if req is None:
+            return
+        ids = list(req.kv_blocks or [])
+        if req.prefix and req.prefix[0] > 0:
+            ids += list(req.prefix[1])
+        if ids:
+            self.paged.pool.decref(ids)
+
+    def _alloc_slot_blocks(self, i: int, s: _Slot, req: SlotRequest, budget: int) -> bool:
+        """Install slot ``i``'s table: shared prefix blocks, then fresh ones
+        for the rest of ``prompt + budget`` (the server's pre-allocation, or
+        allocated here with LRU eviction).  False when the pool is short."""
+        rt = self.paged
+        s.alloc = len(req.ids) + budget
+        prefix_ids = list(req.prefix[1]) if (req.prefix and req.prefix[0] > 0) else []
+        fresh_tokens = s.alloc - len(prefix_ids) * rt.block
+        fresh = req.kv_blocks
+        if fresh is None:
+            try:
+                rt.ensure_free(rt.pool.blocks_for(fresh_tokens))
+                fresh = rt.pool.alloc_tokens(fresh_tokens)
+            except OutOfBlocks:
+                if prefix_ids:
+                    rt.pool.decref(prefix_ids)
+                return False
+        s.blocks = prefix_ids + list(fresh)
+        self._bt[i, :] = 0
+        self._bt[i, :len(s.blocks)] = s.blocks
+        return True
+
+    def projected_block_release_s(self, need_blocks: int, fallback_rate: float = 50.0) -> float:
+        """Seconds until the live slots' projected releases cover
+        ``need_blocks``: each slot's remaining budget over its own rate (the
+        measured wave rate times its tokens-per-wave EMA).  A hint read from
+        the server's threads while the engine runs."""
+        with self._marks_lock:
+            n, t0, t1 = self._wave_ctr, self._wave_first, self._wave_last
+        wave_rate = max(1e-3, (n - 1) / (t1 - t0)) if n >= 2 and t1 > t0 else None
+        rel = []
+        for s in list(self._slots_view or []):
+            req = s.req
+            if req is None:
+                continue
+            remaining = max(1, s.budget - len(s.out))
+            rate = (max(1e-3, s.stride_ema) * wave_rate if wave_rate is not None
+                    else fallback_rate)
+            rel.append((remaining / rate, len(s.blocks)))
+        return eta_until_blocks(rel, need_blocks)
+
+    # ---------------------------------------------------------- admission
+    def _admit_dispatch(self, state, slots: List[_Slot], waves, gen_ctr: int) -> int:
+        """Dispatch admissions without a host sync: one program per prompt
+        bucket group (from position 0), one per prefix hit; the host picks
+        up their first tokens later (``_resolve``)."""
+        g, c = self.gen, self.gen.cfg
+        t0 = time.time()
+        valid = []
+        for i, req in waves:
+            s = slots[i]
+            s.req, s.out, s.dispatched = req, [], 0
+            s.blocks, s.alloc = [], 0
+            s.spec_ema, s.spec_idle = 1.0, 0
+            s.stride_ema = float(self.chunk)
+            s.gen_id = gen_ctr = gen_ctr + 1
+            s.t0, s.done, s.pending, s.prefill_s = t0, False, False, 0.0
+            s.cached = req.prefix[0] if req.prefix else 0
+            n_prompt = len(req.ids)
+            if n_prompt == 0 or n_prompt >= c.max_seq or s.cached >= n_prompt:
+                s.req, s.done = None, True
+                self._release_blocks(req)
+                if req.on_done is not None:
+                    req.on_done(None, {"error": f"prompt length {n_prompt} invalid for ctx "
+                                                f"{c.max_seq}"})
+                continue
+            budget = min(req.max_new, c.max_seq - n_prompt)
+            s.budget = budget
+            if budget <= 0:
+                self._release_blocks(req)
+                self._retire(state, slots, i, self._live(slots), park=False)
+                continue
+            if not self._alloc_slot_blocks(i, s, req, budget):
+                s.req, s.done = None, True
+                log.warning("paged admission: out of KV blocks for a %d-token request (%s)",
+                            n_prompt + budget, self.paged.pool.stats())
+                if req.on_done is not None:
+                    req.on_done(None, {"error": "out of KV blocks"})
+                continue
+            valid.append((i, req, budget))
+        if not valid:
+            return gen_ctr
+
+        groups: Dict[int, list] = {}
+        prefix_rows = []
+        for row in valid:
+            if row[1].prefix and row[1].prefix[0] > 0:
+                prefix_rows.append(row)
+            else:
+                groups.setdefault(g._bucket(len(row[1].ids)), []).append(row)
+
+        def row_meta(rows):
+            seeds = [(r.seed % (2 ** 32)) if r.seed is not None
+                     else int(np.random.randint(0, 2 ** 31)) for _, r, _ in rows]
+            return (np.array([len(r.ids) for _, r, _ in rows], np.int64), seeds,
+                    np.array([r.sample.temperature for _, r, _ in rows], np.float32),
+                    np.array([r.sample.top_k for _, r, _ in rows], np.int64),
+                    np.array([r.sample.greedy for _, r, _ in rows], bool))
+
+        def block_inserts(rows):
+            out = []
+            for i, r, _ in rows:
+                n_full = len(r.ids) // self.paged.block
+                if r.on_prefill_blocks is not None and n_full:
+                    out.append((r, list(slots[i].blocks[:n_full])))
+            return out
+
+        def activate(rows, lengths, firsts, gens, temp, topk, greedy):
+            ids = [i for i, _, _ in rows]
+            state["cur"][ids] = lengths
+            state["active"][ids] = 1
+            state["temp"][ids] = temp
+            state["topk"][ids] = topk
+            state["greedy"][ids] = greedy
+            for i, gen in zip(ids, gens):
+                state["gens"][i] = gen
+            state["first"][g._h2d(ids, torch.int64)] = firsts[:, None]
+            for i in ids:
+                slots[i].pending = True
+            ready = None
+            if g.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+            self._pending.append(_PendingWave(rows, firsts, t0, ready, block_inserts(rows)))
+
+        pool = self.paged.arrays
+        for row in prefix_rows:
+            i, req, _ = row
+            plen = req.prefix[0]
+            n_prompt = len(req.ids)
+            sbucket = min(g._bucket(n_prompt - plen), c.max_seq - plen)
+            tokens = np.zeros((1, sbucket), np.int64)
+            tokens[0, :n_prompt - plen] = req.ids[plen:]
+            lengths, seeds, temp, topk, greedy = row_meta([row])
+            firsts, gens = g._admit_prefix_paged(
+                tokens, pool, self._bt[[i]], plen, lengths,
+                np.array([slots[i].alloc], np.int64), seeds, temp, topk, greedy)
+            activate([row], lengths, firsts, gens, temp, topk, greedy)
+
+        for bucket, rows in sorted(groups.items()):
+            tokens = np.zeros((len(rows), bucket), np.int64)
+            for j, (_, r, _) in enumerate(rows):
+                tokens[j, :len(r.ids)] = r.ids
+            ids = [i for i, _, _ in rows]
+            lengths, seeds, temp, topk, greedy = row_meta(rows)
+            firsts, gens = g._admit_fused_paged(
+                tokens, pool, self._bt[ids], lengths,
+                np.array([slots[i].alloc for i in ids], np.int64), seeds, temp, topk, greedy)
+            activate(rows, lengths, firsts, gens, temp, topk, greedy)
+        return gen_ctr
+
+    def _resolve(self, state, slots: List[_Slot], wave: _PendingWave) -> None:
+        """Fetch a wave's first tokens (blocks until its prefill lands),
+        hand the prompt blocks to the cache, report the tokens, and retire
+        rows that already ended."""
+        firsts = [int(t) for t in wave.firsts_dev.cpu().tolist()]
+        t_first = time.time() - wave.t0
+        for req, ids in wave.block_inserts:
+            try:  # a failing cache insert must not fail the run for every peer
+                req.on_prefill_blocks(ids)
+            except Exception:
+                log.exception("on_prefill_blocks failed (prefix-cache insert skipped)")
+        live = self._live(slots)
+        for (i, req, budget), first in zip(wave.rows, firsts):
+            s = slots[i]
+            if s.req is not req:
+                log.error("resolve: slot %d holds a different request than its wave", i)
+                s.pending = False
+                continue
+            s.pending = False
+            s.prefill_s = t_first
+            s.out = [first]
+            if first in self.stop_tokens or budget <= 1:
+                s.done = True
+                self._retire(state, slots, i, live)
+
+    def _resolve_pending(self, state, slots, only_ready: bool = False, needed_slots=None):
+        """Resolve dispatched admissions: all of them (blocking), those whose
+        first tokens have landed (``only_ready``), or those touching
+        ``needed_slots`` (plus budget-1 rows no chunk will ever carry)."""
+        if not self._pending:
+            return
+        remaining = []
+        for wave in self._pending:
+            urgent = any(budget <= 1 for _, _, budget in wave.rows)
+            if needed_slots is not None:
+                must = urgent or any(i in needed_slots for i, _, _ in wave.rows)
+            elif only_ready:
+                must = urgent or wave.ready is None or wave.ready.query()
+            else:
+                must = True
+            if must:
+                self._resolve(state, slots, wave)
+            else:
+                remaining.append(wave)
+        self._pending = remaining
+
+    def _retire(self, state, slots: List[_Slot], i: int, batch_size: int,
+                park: bool = True) -> None:
+        s = slots[i]
+        req, out = s.req, s.out
+        s.req, s.done, s.pending = None, True, False
+        if s.blocks:
+            # one decref per reference; blocks the prefix cache also holds
+            # survive, the rest are free before on_done fires
+            self.paged.pool.decref(s.blocks)
+            s.blocks, s.alloc = [], 0
+            self._bt[i, :] = 0
+        self._retired_tokens += len(out)
+        if park:
+            self._to_park.append(i)
+        if req is not None and req.on_done is not None:
+            dt = time.time() - s.t0
+            decode_s = max(dt - s.prefill_s, 0.0)
+            req.on_done(list(out), {
+                "batch": batch_size,
+                "prompt_tokens": len(req.ids),
+                "generated_tokens": len(out),
+                "cached_tokens": s.cached,
+                "prefill_tokens": len(req.ids) - s.cached,
+                "prefill_s": s.prefill_s,
+                "decode_s": decode_s,
+                "tokens_per_s": len(out) / max(decode_s, 1e-9) if out else 0.0,
+            })
+
+    def _flush_park(self, state) -> None:
+        """Apply pending slot parks: frontier 0, inactive, greedy."""
+        if not self._to_park:
+            return
+        ids = list(self._to_park)
+        self._to_park.clear()
+        state["cur"][ids] = 0
+        state["active"][ids] = 0
+        state["temp"][ids] = 0.0
+        state["topk"][ids] = 0
+        state["greedy"][ids] = True
+        for i in ids:
+            state["gens"][i] = None
+        state["first"][self.gen._h2d(ids, torch.int64)] = 0
+
+    @staticmethod
+    def _live(slots: List[_Slot]) -> int:
+        return sum(1 for s in slots if s.req is not None)
+
+    # ----------------------------------------------------------------- run
+    def run(self, feed: Callable[[], Optional[SlotRequest]]) -> Dict:
+        """Admit -> keep ``depth`` chunks in flight -> fetch -> retire/admit,
+        until idle and ``feed()`` is empty.  Returns run stats."""
+        state = self._fresh_state()
+        slots = [_Slot() for _ in range(self.B)]
+        self._slots_view = slots
+        chain: deque = deque()
+        gen_ctr = 0
+        t_start = time.time()
+        admitted = 0
+        self._to_park, self._pending = [], []
+        self._retired_tokens = 0
+        self._reset_counters()
+
+        def admit_free() -> None:
+            nonlocal gen_ctr, admitted
+            wave = []
+            for i in range(self.B):
+                if slots[i].req is not None:
+                    continue
+                req = feed()
+                if req is None:
+                    break
+                admitted += 1
+                wave.append((i, req))
+            if wave:
+                gen_ctr = self._admit_dispatch(state, slots, wave, gen_ctr)
+
+        def dispatch_ok(s: _Slot) -> bool:
+            return s.req is not None and not s.done and 1 + s.dispatched < s.budget
+
+        try:
+            if self.spec is not None:
+                self._run_loop_spec(state, slots, chain, admit_free, dispatch_ok)
+            else:
+                self._run_loop(state, slots, chain, admit_free, dispatch_ok)
+        except BaseException:
+            # the pool outlives this run: leaked references would shrink it
+            for s in slots:
+                if s.blocks:
+                    try:
+                        self.paged.pool.decref(s.blocks)
+                    except Exception:
+                        log.exception("failed releasing slot blocks after engine failure")
+                    s.blocks = []
+            raise
+        finally:
+            self._slots_view = None
+
+        dt = time.time() - t_start
+        n_tok = self._retired_tokens
+        stats = {"requests": admitted, "generated_tokens": n_tok, "wall_s": dt,
+                 "tokens_per_s": n_tok / dt if dt > 0 else 0.0}
+        stats.update({
+            "decode_weight_passes": self._plain_steps + self._spec_dispatches,
+            "decode_kernel": "paged_flash" if self.paged_flash else "gather",
+            "kernel_gather_dispatches": self._gather_dispatches,
+            "kernel_paged_flash_dispatches": self._flash_dispatches,
+            "kernel_forward_steps": self._forward_steps,
+        })
+        if self.spec is not None:
+            stats.update({
+                "spec_drafted_tokens": self._spec_drafted,
+                "spec_accepted_tokens": self._spec_accepted,
+                "spec_dispatches": self._spec_dispatches,
+                "spec_acceptance": (self._spec_accepted / self._spec_drafted
+                                    if self._spec_drafted else 0.0),
+            })
+        return stats
+
+    def _count_dispatch(self, forward_steps: int) -> None:
+        if self.paged_flash:
+            self._flash_dispatches += 1
+        else:
+            self._gather_dispatches += 1
+        self._forward_steps += forward_steps
+
+    def _fill_chain(self, state, slots, chain, dispatch_ok) -> None:
+        """Keep up to ``depth`` plain decode chunks in flight."""
+        g = self.gen
+        while len(chain) < self.depth and any(dispatch_ok(s) for s in slots):
+            snapshot = [(i, s.gen_id, s.dispatched) for i, s in enumerate(slots)
+                        if dispatch_ok(s)]
+            toks, last, state["cur"] = g._decode_scan_paged(
+                state["first"], state["cur"], state["active"], self.paged.arrays, self._bt,
+                state["gens"], state["temp"], state["topk"], state["greedy"], self.chunk,
+                flash=self.paged_flash)
+            self._count_dispatch(self.chunk)
+            state["first"] = last
+            self._plain_steps += self.chunk
+            for i, _, _ in snapshot:
+                slots[i].dispatched += self.chunk
+            chain.append((toks, snapshot))
+
+    def _mark_wave(self) -> None:
+        """One wave's tokens reached the host (the clock of the release ETA)."""
+        now = time.time()
+        with self._marks_lock:
+            if self._wave_ctr == 0:
+                self._wave_first = now
+            self._wave_last = now
+            self._wave_ctr += 1
+
+    def _consume_block(self, state, slots, block: np.ndarray, snapshot) -> None:
+        """Host bookkeeping for one fetched plain chunk."""
+        self._mark_wave()
+        live = self._live(slots)
+        for i, gid, offset in snapshot:
+            s = slots[i]
+            if s.req is None or s.gen_id != gid or s.done:
+                continue  # the lane is garbage for a retired / reassigned slot
+            assert len(s.out) - 1 == offset, (len(s.out), offset)
+            accepted = []
+            for t in (int(x) for x in block[i]):
+                s.out.append(t)
+                accepted.append(t)
+                if t in self.stop_tokens or len(s.out) >= s.budget:
+                    s.done = True
+                    break
+            s.spec_idle += 1
+            s.stride_ema = 0.75 * s.stride_ema + 0.25 * max(1, len(accepted))
+            if s.done:
+                self._retire(state, slots, i, live)
+
+    def _drain_idle(self, state, slots, dispatch_ok) -> None:
+        """Nothing in flight: resolve every admission (blocking) and retire
+        the rows that are done or out of budget."""
+        self._resolve_pending(state, slots)
+        for i, s in enumerate(slots):
+            if s.req is not None and (s.done or not dispatch_ok(s)):
+                self._retire(state, slots, i, self._live(slots))
+
+    def _fetch_next(self, state, slots, chain) -> None:
+        block, snapshot = chain.popleft()
+        pending_here = {i for i, _, _ in snapshot if slots[i].pending}
+        if pending_here or self._pending:
+            # this block may carry steps of rows whose first token the host
+            # has not picked up: resolve exactly those waves first
+            self._resolve_pending(state, slots, needed_slots=pending_here)
+        self._consume_block(state, slots, block.cpu().numpy(), snapshot)  # the wave's fetch
+
+    def _run_loop(self, state, slots, chain, admit_free, dispatch_ok) -> None:
+        while True:
+            self._flush_park(state)  # before admissions: a park must not zero a new slot
+            admit_free()
+            if self._live(slots) == 0:
+                break
+            self._resolve_pending(state, slots, only_ready=True)
+            self._fill_chain(state, slots, chain, dispatch_ok)
+            if not chain:
+                self._drain_idle(state, slots, dispatch_ok)
+                continue
+            self._fetch_next(state, slots, chain)
+
+    # --------------------------------------------------- speculative decoding
+    def _slot_draft_budget(self, s: _Slot) -> int:
+        """Draft length for slot ``s``: the configured max, clamped to its
+        remaining budget and throttled by its acceptance EMA (a 1-token probe
+        every ``probe_every`` waves once throttled to zero)."""
+        req = s.req
+        if req is None or not req.speculative:
+            return 0
+        cap = min(self.spec.tokens, s.budget - len(s.out) - 1)
+        if cap <= 0:
+            return 0
+        k = int(round(s.spec_ema * self.spec.tokens))
+        if k <= 0:
+            if s.spec_idle < self.spec.probe_every:
+                return 0
+            k = 1
+        return min(cap, k)
+
+    def _spec_plan(self, slots, dispatch_ok, probe_only: bool = False):
+        """Drafts for every dispatchable slot (cut after a stop token) when
+        at least one slot drafted, else None; ``probe_only`` answers "would
+        anyone draft?"."""
+        plan, any_draft = [], False
+        for i, s in enumerate(slots):
+            if s.req is None or s.done or s.pending or not dispatch_ok(s):
+                continue
+            toks: List[int] = []
+            k_i = self._slot_draft_budget(s)
+            if k_i > 0:
+                key = (s.gen_id, len(s.out), k_i)
+                memo = self._draft_memo.get(i)
+                if memo is not None and memo[0] == key:
+                    toks = memo[1]
+                else:
+                    toks = self._drafter.draft(s.req.ids + s.out, k_i)[:k_i]
+                    for j, t in enumerate(toks):
+                        if t in self.stop_tokens:
+                            toks = toks[:j + 1]
+                            break
+                    self._draft_memo[i] = (key, toks)
+            if probe_only:
+                if toks:
+                    return True
+                continue
+            plan.append((i, toks))
+            any_draft = any_draft or bool(toks)
+        if probe_only:
+            return False
+        return plan if any_draft else None
+
+    def _spec_dispatch(self, state, slots, plan) -> None:
+        """One verify wave: score the drafts, deliver each row's accepted
+        run plus its bonus token.  Only accepted positions reach the pool."""
+        g = self.gen
+        K = self.spec.tokens
+        assert not any(s.pending for s in slots), "verify with pending slots"
+        draft = np.zeros((self.B, K), np.int64)
+        dlen = np.zeros((self.B,), np.int64)
+        rows = []
+        for i, toks in plan:
+            draft[i, :len(toks)] = toks
+            dlen[i] = len(toks)
+            rows.append((i, slots[i].gen_id))
+        block, accs, last, state["cur"] = g._spec_verify_paged(
+            state["first"], draft, dlen, state["cur"], state["active"], self.paged.arrays,
+            self._bt, state["gens"], state["temp"], state["topk"], state["greedy"], K,
+            flash=self.paged_flash)
+        self._count_dispatch(1)
+        state["first"] = last
+        self._spec_dispatches += 1
+        self._mark_wave()
+        alpha = self.spec.ema_alpha
+        live = self._live(slots)
+        for i, gid in rows:
+            s = slots[i]
+            if s.req is None or s.gen_id != gid or s.done:
+                continue
+            k_i = int(dlen[i])
+            m = min(int(accs[i]), k_i)
+            if k_i > 0:
+                s.spec_ema = (1 - alpha) * s.spec_ema + alpha * (m / k_i)
+                s.spec_idle = 0
+                self._spec_drafted += k_i
+                self._spec_accepted += m
+                if self.on_spec is not None:
+                    try:
+                        self.on_spec(k_i, m)
+                    except Exception:
+                        log.exception("on_spec hook failed")
+            else:
+                s.spec_idle += 1
+            accepted = []
+            for t in (int(x) for x in block[i, :m + 1]):
+                s.out.append(t)
+                accepted.append(t)
+                if t in self.stop_tokens or len(s.out) >= s.budget:
+                    s.done = True
+                    break
+            s.dispatched = len(s.out) - 1
+            s.stride_ema = 0.75 * s.stride_ema + 0.25 * max(1, len(accepted))
+            if s.done:
+                self._retire(state, slots, i, live)
+
+    def _run_loop_spec(self, state, slots, chain, admit_free, dispatch_ok) -> None:
+        """Variable-stride loop: when the host is caught up and a slot has a
+        draft, one verify step; otherwise plain pipelined chunks, refilled
+        only while no slot would draft."""
+        while True:
+            self._flush_park(state)
+            admit_free()
+            if self._live(slots) == 0:
+                break
+            self._resolve_pending(state, slots, only_ready=True)
+            plan = None
+            if not chain:
+                # caught up: a verify needs every row's full history, and must
+                # never advance a retired slot whose blocks were released
+                self._drain_idle(state, slots, dispatch_ok)
+                if self._live(slots) == 0:
+                    continue
+                self._flush_park(state)
+                plan = self._spec_plan(slots, dispatch_ok)
+            if plan is not None:
+                self._spec_dispatch(state, slots, plan)
+                continue
+            if not chain or not self._spec_plan(slots, dispatch_ok, probe_only=True):
+                self._fill_chain(state, slots, chain, dispatch_ok)
+            if not chain:
+                self._drain_idle(state, slots, dispatch_ok)
+                continue
+            self._fetch_next(state, slots, chain)

@@ -1,0 +1,222 @@
+"""Paged decode attention: the hand-written Hopper kernel and its plain twin.
+
+Counterpart of ``paged_attention_partial``, ``paged_flash_attention`` and
+``paged_bytes_accounting`` in ``tpustack/ops/pallas/flash_attention.py``.  The
+KV pool (``[N, blk, Hkv, D]`` per layer) is read in place through per-row
+block tables; the result is the unnormalised online-softmax partial of
+:func:`~tpustack_torch.ops.attention.dot_product_attention_partial`, so the
+continuous decode step merges it with its chunk-buffer partial unchanged.
+
+:func:`paged_attention_partial` launches ``csrc/paged_attention.cu`` for
+CUDA tensors and raises when it cannot; it never falls back.  For CPU tensors
+it runs :func:`paged_attention_partial_ref`, the plain PyTorch version (a
+gather of the table-mapped blocks into a dense view, then the plain partial),
+which the tests hold against the JAX package and ``chip_smoke.py`` holds the
+kernel against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from tpustack_torch.ops.attention import dot_product_attention_partial
+
+KERNEL = "paged_attention"
+TILE = 64             # key positions per kernel tile
+TARGET_BLOCKS = 264   # CUDA blocks the key split aims for: 2 per H100 SM
+MAX_ROWS = 64         # S * H / Hkv query rows one (b, kv head) block takes
+
+
+def _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale):
+    if q.dim() != 4 or pool_k.dim() != 4:
+        raise ValueError("q must be [B, S, H, D] and the pools [N, blk, Hkv, D]")
+    b, _, h, d = q.shape
+    if pool_k.shape != pool_v.shape:
+        raise ValueError(f"pool shapes differ: {tuple(pool_k.shape)} vs {tuple(pool_v.shape)}")
+    if pool_k.shape[3] != d:
+        raise ValueError(f"q head_dim {d} != pool head_dim {pool_k.shape[3]}")
+    if h % pool_k.shape[2]:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {pool_k.shape[2]}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or tuple(lengths.shape) != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {b}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is not None and (tuple(k_scale.shape) != tuple(pool_k.shape[:3])
+                                or tuple(v_scale.shape) != tuple(pool_k.shape[:3])):
+        raise ValueError(f"scales must be {tuple(pool_k.shape[:3])}")
+
+
+def gather_pool(x: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Pool tensor ``[N, blk, *tail]`` -> dense per-row view ``[B, nb*blk,
+    *tail]`` through ``block_tables [B, nb]`` (a copy)."""
+    b, nb = block_tables.shape
+    g = x.index_select(0, block_tables.reshape(-1).long())
+    return g.reshape((b, nb * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def paged_attention_partial_ref(q, pool_k, pool_v, block_tables, lengths, *,
+                                scale: Optional[float] = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of :func:`paged_attention_partial`: gather the
+    table-mapped blocks into a dense view and take the plain partial with
+    the mask ``position < lengths[b]``.  Idle entries (block 0 included) are
+    gathered but masked, so they contribute exactly zero."""
+    _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale)
+    s = q.shape[1]
+    k = gather_pool(pool_k, block_tables)
+    v = gather_pool(pool_v, block_tables)
+    ks = gather_pool(k_scale, block_tables) if k_scale is not None else None
+    vs = gather_pool(v_scale, block_tables) if v_scale is not None else None
+    cols = torch.arange(k.shape[1], device=q.device)
+    mask = (cols[None, :] < lengths.to(q.device)[:, None].long())[:, None, :]
+    mask = mask.expand(q.shape[0], s, k.shape[1])
+    return dot_product_attention_partial(q, k, v, mask=mask, scale=scale, k_scale=ks,
+                                         v_scale=vs)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The built kernel's C entry, with its ctypes signature (built once)."""
+    from tpustack_torch.ops import _build
+
+    fn = _build.load(KERNEL).tpst_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_float,
+                                                                  ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def split_plan(batch: int, hkv: int, nb: int, blk: int):
+    """``(tiles_per_split, nsplit)``: how the kernel cuts each row's table
+    span into key splits so that about :data:`TARGET_BLOCKS` CUDA blocks run
+    (a split covers ``tiles_per_split`` 64-position tiles)."""
+    tiles = -(-nb * blk // TILE)
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, batch * hkv))))
+    per = -(-tiles // want)
+    return per, -(-tiles // per)
+
+
+def paged_attention_partial(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                            block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                            scale: Optional[float] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None):
+    """In-place paged attention over keys ``[0, lengths[b])``, as the partial
+    ``(acc [B,S,H,D] f32, m [B,S,H] f32, l [B,S,H] f32)``.
+
+    ``q [B, S, H, D]``: S = 1 for a decode step, K+1 for a speculative
+    verify (every row attends the same pool prefix).  ``pool_k/pool_v [N,
+    blk, Hkv, D]`` are the pool tensors, read through ``block_tables [B, nb]``
+    (int32); idle entries may point anywhere, block 0 included.
+    ``k_scale``/``v_scale [N, blk, Hkv]`` f32 dequantise an int8 pool.
+
+    CUDA: q contiguous bf16, pools contiguous bf16 (or int8 with scales),
+    ``D`` a multiple of 16 up to 128, ``blk`` a multiple of 16, and ``S * H /
+    Hkv <= 64``; anything else raises.  The kernel launches on the current
+    stream and ``paged_attention_partial.launches`` counts each launch.  CPU
+    tensors take :func:`paged_attention_partial_ref`."""
+    _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_attention_partial_ref(q, pool_k, pool_v, block_tables, lengths,
+                                           scale=scale, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_partial: unsupported device {q.device}")
+    b, s, h, d = q.shape
+    n_pool, blk, hkv, _ = pool_k.shape
+    nb = block_tables.shape[1]
+    quant = k_scale is not None
+    tensors = {"q": q, "pool_k": pool_k, "pool_v": pool_v, "block_tables": block_tables,
+               "lengths": lengths}
+    if quant:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"paged_attention_partial: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention_partial kernel needs contiguous tensors; "
+                             f"{name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention_partial kernel needs 16-byte aligned {name}")
+    want = torch.int8 if quant else torch.bfloat16
+    if q.dtype != torch.bfloat16 or pool_k.dtype != want or pool_v.dtype != want:
+        raise ValueError(f"paged_attention_partial kernel takes bf16 q and {want} pools "
+                         f"(int8 with scales); got {q.dtype}, {pool_k.dtype}, {pool_v.dtype}")
+    if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("paged_attention_partial kernel takes float32 scales")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("block_tables and lengths must be int32")
+    if d % 16 or d > 128:
+        raise ValueError(f"paged_attention_partial kernel takes D <= 128, a multiple of 16; "
+                         f"got {d}")
+    if blk % 16:
+        raise ValueError(f"paged_attention_partial kernel takes blk a multiple of 16; got {blk}")
+    rows = s * (h // hkv)
+    if rows > MAX_ROWS:
+        raise ValueError(f"paged_attention_partial kernel takes S*H/Hkv <= {MAX_ROWS} query "
+                         f"rows per kv head; got {rows}")
+    acc = torch.empty((b, s, h, d), device=q.device, dtype=torch.float32)
+    m = torch.empty((b, s, h), device=q.device, dtype=torch.float32)
+    l = torch.empty((b, s, h), device=q.device, dtype=torch.float32)
+    if b == 0:
+        return acc, m, l
+    per, nsplit = split_plan(b, hkv, nb, blk)
+    rp = 16 * -(-rows // 16)
+    ws = (None, None, None)
+    if nsplit > 1:
+        ws = (torch.empty((b * hkv * nsplit * rp * d,), device=q.device, dtype=torch.float32),
+              torch.empty((b * hkv * nsplit * rp,), device=q.device, dtype=torch.float32),
+              torch.empty((b * hkv * nsplit * rp,), device=q.device, dtype=torch.float32))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ptr(k_scale),
+                    ptr(v_scale), block_tables.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+                    m.data_ptr(), l.data_ptr(), *map(ptr, ws), b, s, h, hkv, d, blk, nb, n_pool,
+                    int(quant), per, nsplit, float(d ** -0.5 if scale is None else scale),
+                    stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
+    paged_attention_partial.launches += 1
+    return acc, m, l
+
+
+paged_attention_partial.launches = 0
+
+
+def paged_flash_attention(q, pool_k, pool_v, block_tables, lengths, *,
+                          scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalised in-place paged attention ``[B, S, H, D]`` in ``q``'s dtype;
+    a row with ``lengths[b] == 0`` gives zeros."""
+    acc, _, l = paged_attention_partial(q, pool_k, pool_v, block_tables, lengths,
+                                        scale=scale, k_scale=k_scale, v_scale=v_scale)
+    return (acc / l[..., None].clamp_min(1e-30)).to(q.dtype)
+
+
+def paged_bytes_accounting(*, n_valid_blocks: int, blocks_per_seq: int, block: int,
+                           kvh: int, hd: int, esize: int, scale_bytes: int,
+                           n_steps: int) -> dict:
+    """Per-decode-step device-memory bytes of ONE slot's pool reads, gather vs
+    in place (the JAX package's arithmetic, copied).  Gather pays, per chunk
+    of ``n_steps``: read every table-mapped block and write the dense copy
+    once, then read the whole dense copy per step.  In place pays the valid
+    blocks per step plus one block for the idle tail.  Bytes per position are
+    K + V (``esize`` each) plus the int8 layout's scales (``scale_bytes``)."""
+    pos_bytes = kvh * (2 * hd * esize + scale_bytes)
+    full = blocks_per_seq * block * pos_bytes
+    valid = n_valid_blocks * block * pos_bytes
+    tail = (block * pos_bytes) if n_valid_blocks < blocks_per_seq else 0
+    gather_chunk = 2 * full + n_steps * full
+    inplace_chunk = n_steps * (valid + tail)
+    return {
+        "gather_step_bytes": gather_chunk / max(1, n_steps),
+        "paged_flash_step_bytes": inplace_chunk / max(1, n_steps),
+        "gather_chunk_bytes": gather_chunk,
+        "paged_flash_chunk_bytes": inplace_chunk,
+    }
