@@ -5,14 +5,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. The card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. Build the CUDA kernels from the sources in ``tpustack_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), print ptxas' registers
+   and spills, and count the flash library's ``HGMMA`` (wgmma), ``UTMALDG``
+   (TMA loads), ``SYNCS`` (mbarrier) and ``HMMA`` (mma.sync) instructions
+   with ``cuobjdump -sass``.
 3. Each kernel against its plain PyTorch twin on the card, in bf16: flash
    attention at the shapes the SD1.5 path gives it plus causal/GQA/offset
    and ragged cases; paged attention at the LLM decode and verify shapes
    over a scrambled pool with block 0 poisoned, int8, MQA/GQA/MHA and a
    16-token block.  Per shape the kernel's and the twin's times, a PyTorch
    library call's where one computes the same function, and the least time
-   the card could take (``bound_ms``).
+   the card could take (``bound_ms``).  Kernel and library times are device
+   time, from calls replayed out of a CUDA graph (``device_ms``);
+   ``call_ms`` is a call's time from Python, host included, and the twins
+   are timed that way.  For flash also ``exp_bound_ms``, the
+   exponentials alone on the special-function units.  The LLM path's two
+   flash shapes are timed after phase 4b, with the prefix hit's length
+   taken from that run.
 4. The SD1.5 path: the port's SD1.5 server in-process at full width
    (``SD15Config.sd15()``, bf16, weights drawn from a seed), one
    ``POST /generate`` at 512x512x30 steps, then 8 concurrent requests that
@@ -36,6 +45,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 Peaks for ``bound_ms`` are the published H100 SXM figures (989 TFLOP/s
 dense bf16, 3.35 TB/s HBM3); the card's power limit is printed beside them.
+``exp_bound_ms`` takes 16 exp2 per clock per SM over 132 SMs at the card's
+maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``, printed).
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -54,6 +67,7 @@ import zlib
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+H100_SMS, EXP2_PER_CLOCK_PER_SM = 132, 16
 # Kernel vs its float32 twin.  Both round the output to bf16 (one ulp is at
 # most 2^-7 relative) and the kernel also rounds P to bf16 before P.V; with
 # N(0,1) inputs a typical output is ~0.03 at 4096 keys, so the absolute limit
@@ -102,17 +116,58 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the host enqueues nothing in the timed window, so a
+    short kernel is not timed at the host's launch rate, as ``cuda_ms`` may
+    time it.  Launch counters move during the capture, never at replay."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm up outside the capture, on a side stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay also uploads the graph
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
+def _valid_keys(sq, causal, q_offset, kv_len):
+    """Valid keys of each q row."""
+    return [max(min(kv_len, q_offset + i + 1) if causal else kv_len, 0) for i in range(sq)]
+
+
 def attention_bound(b, sq, sk, h, hkv, d, causal, q_offset, kv_len):
     """(ms, "operations" | "bytes"): the least time for the work these
     inputs need: 4*D flops per valid (row, key) pair per head, and each
     needed input byte read once and the output written once (bf16)."""
-    rows = [min(kv_len, q_offset + i + 1) if causal else kv_len for i in range(sq)]
-    pairs = sum(max(r, 0) for r in rows)
+    rows = _valid_keys(sq, causal, q_offset, kv_len)
+    pairs = sum(rows)
     keys = max(rows) if rows else 0
     flops = 4.0 * b * h * pairs * d
     nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * keys * hkv * d)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def exp_bound(b, sq, h, causal, q_offset, kv_len, sm_mhz):
+    """ms for one exponential per valid (row, key) pair per head at 16 exp2
+    per clock per SM over 132 SMs at ``sm_mhz``."""
+    exps = b * h * sum(_valid_keys(sq, causal, q_offset, kv_len))
+    return exps / (EXP2_PER_CLOCK_PER_SM * H100_SMS * sm_mhz * 1e6) * 1e3
 
 
 def png_to_array(png: bytes):
@@ -146,24 +201,66 @@ def get(url: str):
         return r.status, r.read()
 
 
-def phase_kernels(torch):
-    """Phase 3: kernel vs twin on the card; returns per-shape records."""
-    import torch.nn.functional as F
+FLASH_CASES = [  # (label, q shape, kv shape, kwargs, the main path it is on)
+    ("sd15 level0 b1", (2, 4096, 8, 40), (2, 4096, 8, 40), {}, "sd15"),
+    ("sd15 level0 b8", (16, 4096, 8, 40), (16, 4096, 8, 40), {}, "sd15"),
+    ("sd15 level1 b1", (2, 1024, 8, 80), (2, 1024, 8, 80), {}, "sd15"),
+    ("sd15 level1 b8", (16, 1024, 8, 80), (16, 1024, 8, 80), {}, "sd15"),
+    ("causal gqa offset", (1, 512, 8, 64), (1, 2048, 2, 64),
+     dict(causal=True, q_offset=1024, kv_len=1536), None),
+    ("ragged", (1, 77, 8, 40), (1, 300, 8, 40), {}, None),
+]
 
+
+def llm_flash_cases(prefix: int):
+    """The LLM path's flash shapes at Qwen2.5-7B width: the from-zero
+    prefill of the 1361-token prompt's 2048 bucket, and the streaming
+    prefill of a 1024-row suffix bucket after a ``prefix``-token hit over
+    the 4096-token row cache."""
+    return [
+        ("llm prefill 2048", (1, 2048, 28, 128), (1, 2048, 4, 128), dict(causal=True), "llm"),
+        ("llm suffix 1024", (1, 1024, 28, 128), (1, 4096, 4, 128),
+         dict(causal=True, q_offset=prefix, kv_len=prefix + 1024), "llm"),
+    ]
+
+
+def library_attention(torch, q, k, v, kw):
+    """(fn, name): one SDPA call computing the same function, the yardstick
+    (timed here, never used by the port).  Causal over the first kv_len keys
+    with q rows ending at kv_len is SDPA's lower-right causal variant."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    _, sq, h, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    causal, off, klen = kw.get("causal", False), kw.get("q_offset", 0), kw.get("kv_len", sk)
+    gqa = hkv != h
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if not causal and klen == sk:
+        return (lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa)), "sdpa"
+    if causal and off + sq == klen:
+        kt, vt = kt[:, :, :klen].contiguous(), vt[:, :, :klen].contiguous()
+        if sq == klen:
+            return (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=gqa)), "sdpa is_causal"
+        bias = causal_lower_right(sq, klen)
+        return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                                       enable_gqa=gqa)), "sdpa lower-right"
+    rows = torch.arange(sq, device=q.device)[:, None] + off
+    cols = torch.arange(sk, device=q.device)[None, :]
+    mask = (cols < klen) & ((cols <= rows) if causal else True)
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=gqa)), "sdpa bool mask"
+
+
+def phase_kernels(torch, cases, sm_mhz: float):
+    """Phase 3: the flash kernel vs its twin on the card; returns per-shape
+    records."""
     from tpustack_torch.ops.flash_attention import flash_attention, flash_attention_ref
 
-    cases = [  # (label, q shape, kv shape, kwargs, on the SD1.5 path)
-        ("sd15 level0 b1", (2, 4096, 8, 40), (2, 4096, 8, 40), {}, True),
-        ("sd15 level0 b8", (16, 4096, 8, 40), (16, 4096, 8, 40), {}, True),
-        ("sd15 level1 b1", (2, 1024, 8, 80), (2, 1024, 8, 80), {}, True),
-        ("sd15 level1 b8", (16, 1024, 8, 80), (16, 1024, 8, 80), {}, True),
-        ("causal gqa offset", (1, 512, 8, 64), (1, 2048, 2, 64),
-         dict(causal=True, q_offset=1024, kv_len=1536), False),
-        ("ragged", (1, 77, 8, 40), (1, 300, 8, 40), {}, False),
-    ]
     g = torch.Generator("cuda").manual_seed(0)
     records = []
-    for label, qs, ks, kw, on_path in cases:
+    for label, qs, ks, kw, path in cases:
         q, k, v = (torch.randn(s, generator=g, device="cuda").bfloat16() for s in (qs, ks, ks))
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -174,30 +271,29 @@ def phase_kernels(torch):
         ok = torch.allclose(out.float(), ref.float(), atol=ATOL, rtol=RTOL) and rel < REL_L2
         b, sq, h, d = qs
         sk, hkv = ks[1], ks[2]
-        off, klen = kw.get("q_offset", 0), kw.get("kv_len", sk)
-        bound_ms, bound_by = attention_bound(b, sq, sk, h, hkv, d, kw.get("causal", False),
-                                             off, klen)
-        rec = dict(label=label, shape_q=list(qs), shape_kv=list(ks), max_abs_err=err, rel_l2=rel,
-                   ok=bool(ok), on_sd15_path=on_path, bound_ms=bound_ms, bound_by=bound_by)
+        causal, off, klen = kw.get("causal", False), kw.get("q_offset", 0), kw.get("kv_len", sk)
+        bound_ms, bound_by = attention_bound(b, sq, sk, h, hkv, d, causal, off, klen)
+        rec = dict(label=label, shape_q=list(qs), shape_kv=list(ks), kw=kw, path=path,
+                   max_abs_err=err, rel_l2=rel, ok=bool(ok), bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   exp_bound_ms=exp_bound(b, sq, h, causal, off, klen, sm_mhz))
         iters = 20 if b * sq * sk > 1e8 else 50
-        rec["ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
+        rec["ms"] = device_ms(lambda: flash_attention(q, k, v, **kw), iters)
+        rec["call_ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
         rec["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
-        # the library yardstick: one SDPA call (timed here, never used by the port)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = None
-        if kw:
-            rows = torch.arange(sq, device="cuda")[:, None] + off
-            cols = torch.arange(sk, device="cuda")[None, :]
-            mask = (cols < klen) & (cols <= rows)  # the offset case is causal
-        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=hkv != h), iters)
-        del ref, out
+        lib, rec["library_call"] = library_attention(torch, q, k, v, kw)
+        rec["library_ms"] = device_ms(lib, iters)
+        del ref, out, lib
         torch.cuda.empty_cache()
         log(f"kernel flash_attention {label}: q {list(qs)} kv {list(ks)} {kw or ''} "
             f"max_abs_err={err:.3e} (atol {ATOL}, rtol {RTOL}) rel_l2={rel:.3e} "
             f"(limit {REL_L2}) {'OK' if ok else 'MISMATCH'} "
-            f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-            f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}")
+            f"kernel_ms={rec['ms']:.4f} call_ms={rec['call_ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']:.4f} ({rec['library_call']}) "
+            f"kernel/library={rec['ms'] / rec['library_ms']:.3f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) exp_bound_ms={rec['exp_bound_ms']:.4f} "
+            f"(at {sm_mhz:.0f} MHz)")
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its twin at {label}")
         records.append(rec)
@@ -420,11 +516,13 @@ def phase_paged_kernels(torch):
                    int8=int8, max_abs_err=err, rel_l2=rel, m_err=m_err, l_rel=l_rel,
                    acc_rel_l2=acc_rel, ok=bool(ok), on_llm_path=on_path,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        rec["ms"] = cuda_ms(lambda: paged_attention_partial(q, pk, pv, bt, lens, **kw), 100)
+        rec["ms"] = device_ms(lambda: paged_attention_partial(q, pk, pv, bt, lens, **kw), 100)
+        rec["call_ms"] = cuda_ms(lambda: paged_attention_partial(q, pk, pv, bt, lens, **kw),
+                                 100)
         rec["plain_ms"] = cuda_ms(lambda: paged_attention_partial_ref(q, pk, pv, bt, lens,
                                                                       **kw), 5)
         # the bisection body's copy: one layer's K and V gathered dense
-        rec["gather_ms"] = cuda_ms(lambda: (gather_pool(pk, bt), gather_pool(pv, bt)), 20)
+        rec["gather_ms"] = device_ms(lambda: (gather_pool(pk, bt), gather_pool(pv, bt)), 20)
         del racc, rm, rl, out, rout, diff
         torch.cuda.empty_cache()
         log(f"kernel paged_attention {label}: q {rec['shape_q']} pool {rec['shape_pool']} "
@@ -432,6 +530,7 @@ def phase_paged_kernels(torch):
             f"rel_l2={rel:.3e} (limit {REL_L2}) m_err={m_err:.2e} (limit {PAGED_M_ATOL}) "
             f"l_rel={l_rel:.2e} (limit {PAGED_L_RTOL}) acc_rel_l2={acc_rel:.2e} "
             f"{'OK' if ok else 'MISMATCH'} kernel_ms={rec['ms']:.4f} "
+            f"call_ms={rec['call_ms']:.4f} "
             f"plain_ms={rec['plain_ms']:.4f} gather_ms={rec['gather_ms']:.4f} "
             f"library_ms=none bound_ms={bound_ms:.4f} ({bound_by})")
         if not ok:
@@ -607,8 +706,15 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     e2e["teacher_rel_l2"] = teacher_forced_check(torch, gen, rt)
     if on_card:
         e2e.update(profile_decode(torch, gen, rt))
+    # every hit shares the system prompt's whole blocks: the streaming
+    # suffix prefill's q_offset
+    block = props["prefix_cache"]["block_tokens"]
+    prefix = props["prefix_cache"]["cached_tokens_served"] // hits // block * block
+    log(f"llm: prefix hits of {prefix} tokens ({hits} hits, "
+        f"{props['prefix_cache']['cached_tokens_served']} tokens served from the cache)")
     del server, rt, gen
-    return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e)
+    return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e,
+                prefix_hit_tokens=prefix)
 
 
 def _decode_state(torch, gen, rt, lengths, seed=0):
@@ -734,6 +840,21 @@ def build_kernels() -> dict:
     return logs
 
 
+def sass_counts(name: str) -> dict:
+    """{instruction: count} in the built library's SASS (``cuobjdump -sass``),
+    or {} when no ``cuobjdump`` is found."""
+    from tpustack_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build._lib_path(name)], capture_output=True,
+                          text=True, check=True).stdout
+    ops = re.findall(r"\b(HGMMA|UTMALDG|SYNCS|HMMA)\b", sass)
+    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS", "HMMA")}
+
+
 def main() -> int:
     import torch
 
@@ -746,8 +867,11 @@ def main() -> int:
                          check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
     log(smi)
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"], capture_output=True,
+                                  text=True, check=True).stdout.split()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; max SM clock {sm_mhz:.0f} MHz")
 
     # phase 2: build every kernel of the paths, in parallel
     t0 = time.perf_counter()
@@ -757,9 +881,16 @@ def main() -> int:
     for name, text in logs.items():
         log("\n".join(f"{name}: {ln.strip()}" for ln in text.splitlines()
                       if "registers" in ln or "spill" in ln))
+    # the flash kernel's main loop is wgmma fed by TMA, with no mma.sync left
+    sass = sass_counts("flash_attention")
+    if not sass:
+        log("flash_attention SASS: not counted (no cuobjdump beside nvcc or on PATH)")
+    else:
+        log(f"flash_attention SASS instructions: {sass}")
+        assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["HMMA"] == 0, sass
 
-    # phase 3: kernels vs their twins
-    records = phase_kernels(torch)
+    # phase 3: kernels vs their twins (the LLM's flash shapes after phase 4b)
+    records = phase_kernels(torch, FLASH_CASES, sm_mhz)
     paged_records = phase_paged_kernels(torch)
 
     # phase 4: the SD1.5 path; its pipeline is freed before the LLM's weights load
@@ -771,15 +902,17 @@ def main() -> int:
     llm = phase_llm(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    records += phase_kernels(torch, llm_flash_cases(llm["prefix_hit_tokens"]), sm_mhz)
 
     # phase 5: the kernels line, each at its main path's most frequent shape
     head = records[0]
-    detail = [{k: r[k] for k in ("label", "shape_q", "shape_kv", "ms", "plain_ms",
-                                 "library_ms", "bound_ms", "max_abs_err", "rel_l2")}
+    detail = [{k: r[k] for k in ("label", "shape_q", "shape_kv", "kw", "path", "ms",
+                                 "call_ms", "plain_ms", "library_ms", "library_call", "bound_ms",
+                                 "bound_by", "exp_bound_ms", "max_abs_err", "rel_l2")}
               for r in records]
     paged_head = paged_records[0]
     paged_detail = [{k: r[k] for k in ("label", "shape_q", "shape_pool", "int8", "ms",
-                                       "plain_ms", "gather_ms", "bound_ms", "bound_by",
+                                       "call_ms", "plain_ms", "gather_ms", "bound_ms", "bound_by",
                                        "max_abs_err", "rel_l2", "m_err", "l_rel")}
                     for r in paged_records]
     kernels = [{
@@ -792,7 +925,8 @@ def main() -> int:
         "rel_l2": max(r["rel_l2"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["label"], "shapes": detail,
+        "exp_bound_ms": head["exp_bound_ms"], "sm_clock_mhz": sm_mhz,
+        "shape": head["label"], "shapes": detail, "sass": sass,
     }, {
         "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_REPLACES, "launches": llm["paged_launches"],

@@ -41,6 +41,19 @@ CASES = [
     ((1, 64, 2, 16), (1, 64, 2, 16), dict(kv_len=0)),
     ((1, 100, 3, 8), (1, 100, 1, 8), dict(causal=True)),   # D below the MMA width, MQA
     ((1, 70, 2, 104), (1, 33, 2, 104), {}),                # odd lengths, D padded to 112
+    # the edges of the Hopper tiling: 128 q rows per CTA (two warpgroups of
+    # 64), 128-key K/V tiles, 64-wide TMA boxes along D
+    ((1, 33, 4, 64), (1, 33, 4, 64), {}),                  # Sq below one warpgroup's 64
+    ((2, 130, 4, 40), (2, 200, 4, 40), {}),                # Sq, Sk not tile multiples
+    ((1, 200, 4, 80), (1, 200, 4, 80), dict(causal=True)),
+    ((1, 256, 4, 64), (1, 512, 4, 64), dict(kv_len=300)),  # kv_len inside a K/V tile
+    ((1, 256, 4, 64), (1, 512, 2, 64),                     # diagonal crosses q tiles
+     dict(causal=True, q_offset=37, kv_len=293)),
+    ((1, 300, 28, 128), (1, 300, 4, 128), dict(causal=True)),  # GQA 28/4 (Qwen2.5-7B)
+    # the LLM path's two flash shapes at Qwen2.5-7B width: from-zero prefill of
+    # the 2048 bucket, and a 1024-row suffix after a 256-token prefix hit
+    ((1, 2048, 28, 128), (1, 2048, 4, 128), dict(causal=True)),
+    ((1, 1024, 28, 128), (1, 4096, 4, 128), dict(causal=True, q_offset=256, kv_len=1280)),
 ]
 
 
@@ -65,6 +78,33 @@ def test_flash_kernel_matches_twin(cuda, qs, ks, kw):
     torch.testing.assert_close(out.float(), ref.float(), atol=4e-3, rtol=1e-2)
     rel = (out.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30)
     assert rel < 1e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_flash_kernel_every_head_dim(cuda, d):
+    """Every D the contract allows: one or two 64-wide boxes, P.V at N = D."""
+    g = torch.Generator(cuda).manual_seed(d)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((1, 150, 2, d), (1, 140, 1, d), (1, 140, 1, d)))
+    out = flash_attention(q, k, v, causal=True, q_offset=10)
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=10)
+    torch.testing.assert_close(out.float(), ref.float(), atol=4e-3, rtol=1e-2)
+    rel = (out.float() - ref.float()).norm() / ref.float().norm()
+    assert rel < 1e-2, rel
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rows_without_keys_are_exact_zeros(cuda):
+    g = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((1, 160, 4, 40), (1, 160, 2, 40), (1, 160, 2, 40)))
+    assert torch.equal(flash_attention(q, k, v, kv_len=0), torch.zeros_like(q))
+    # causal rows at negative positions see no key; the others match the twin
+    out = flash_attention(q, k, v, causal=True, q_offset=-70)
+    assert torch.equal(out[:, :70], torch.zeros_like(out[:, :70]))
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=-70)
+    torch.testing.assert_close(out.float(), ref.float(), atol=4e-3, rtol=1e-2)
 
 
 @pytest.mark.gpu

@@ -257,7 +257,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "flash_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "tpustack_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

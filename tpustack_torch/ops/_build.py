@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` into a plain C-ABI shared
-library under ``<checkout>/build/kernels/``, named by a hash of its source and
-flags, and is loaded with ``ctypes``.  The build happens at first use, never at
-import, so the CPU-only tests import every module without ``nvcc``.  A failed
-build raises with the compiler's output.
+library under ``<checkout>/build/kernels/``, named by a hash of its source, the
+shared ``csrc/*.cuh`` headers and the flags, and is loaded with ``ctypes``.
+The build happens at first use, never at import, so the CPU-only tests import
+every module without ``nvcc``.  A failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -43,9 +44,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """The library's path, named by a hash of its source, every shared header
+    (``csrc/*.cuh``) and the flags."""
+    sources = [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
