@@ -6,7 +6,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. The card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. Build the CUDA kernels from the sources in ``tpustack_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), print ptxas' registers
-   and spills, and count the flash library's ``HGMMA`` (wgmma), ``UTMALDG``
+   and spills, and count each library's ``HGMMA`` (wgmma), ``UTMALDG``
    (TMA loads), ``SYNCS`` (mbarrier) and ``HMMA`` (mma.sync) instructions
    with ``cuobjdump -sass``.
 3. Each kernel against its plain PyTorch twin on the card, in bf16: flash
@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the card could take (``bound_ms``).  Kernel and library times are device
    time, from calls replayed out of a CUDA graph (``device_ms``);
    ``call_ms`` is a call's time from Python, host included, and the twins
-   are timed that way.  For flash also ``exp_bound_ms``, the
+   are timed that way.  The paged shapes also cover the edges of the
+   kernel's work split (all rows empty, one full row, lengths on tile
+   multiples, one row of one kv head, 32-token blocks) and print the share
+   of the bound the kernel reaches.  For flash also ``exp_bound_ms``, the
    exponentials alone on the special-function units.  The LLM path's two
    flash shapes are timed after phase 4b, with the prefix hit's length
    taken from that run.
@@ -38,7 +41,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    >512-token suffix).  Statuses, bodies, ``/props``, the exact paged
    kernel launch count, flash launches and a leak-free pool are checked;
    then one decode chunk teacher-forced through the kernel and through the
-   gather path, and a torch.profiler breakdown of one decode step at 8 rows.
+   gather path, and a torch.profiler breakdown of one decode step and one
+   speculative verify step (4 drafts) at 8 rows of 2048 tokens.
 5. A JSON line of the end-to-end numbers, then, as the line before the last,
    one JSON line listing every kernel with its numbers.
 6. The last line: ``{"ok": true, "device": {...}}``.
@@ -439,10 +443,11 @@ def paged_bound(b, s, h, hkv, d, lens, blk, nb, int8):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0):
+def paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0, lens=None):
     """A scrambled pool with block 0 poisoned (1e4, or 127 in int8), ragged
-    lengths up to ``ctx`` (row 0 full, row 1 empty, row 2 mid-block), idle
-    table entries at block 0.  Made on the host from a seed, then moved."""
+    lengths up to ``ctx`` (row 0 full, row 1 empty, row 2 mid-block; or
+    ``lens``), idle table entries at block 0.  Made on the host from a seed,
+    then moved."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     shape = (n_pool, blk, hkv, d)
     if int8:
@@ -457,12 +462,15 @@ def paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0):
         pk[0] = pv[0] = 1e4
         ks = vs = None
     nb = ctx // blk
+    lens_given = lens
     lens = torch.randint(1, ctx + 1, (b,), generator=g, dtype=torch.int32)
     lens[0] = ctx
     if b > 1:
         lens[1] = 0
     if b > 2:
         lens[2] = blk + 3
+    if lens_given is not None:
+        lens = torch.tensor(lens_given, dtype=torch.int32)
     assert sum(-(-int(n) // blk) for n in lens) <= n_pool - 1
     perm = torch.randperm(n_pool - 1, generator=g) + 1
     bt = torch.zeros((b, nb), dtype=torch.int32)
@@ -476,40 +484,62 @@ def paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx, int8, seed=0):
     return to(q), to(pk), to(pv), to(bt), to(lens), to(ks), to(vs)
 
 
+PAGED_CASES = [  # (label, B, S, H, Hkv, D, pool blocks, blk, ctx, int8, on the LLM path,
+    #                 lengths or None for the ragged default)
+    ("decode", 8, 1, 28, 4, 128, 513, 64, 4096, False, True, None),
+    ("verify", 8, 5, 28, 4, 128, 513, 64, 4096, False, True, None),
+    ("int8 verify", 8, 5, 28, 4, 128, 513, 64, 4096, True, False, None),
+    ("mqa", 4, 1, 8, 1, 128, 129, 64, 2048, False, False, None),
+    ("gqa 8/2", 4, 5, 8, 2, 128, 129, 64, 2048, False, False, None),
+    ("mha", 4, 2, 8, 8, 128, 129, 64, 2048, False, False, None),
+    ("blk16 verify", 8, 5, 28, 4, 128, 2049, 16, 4096, False, False, None),
+    # the edges of the kernel's work split over one CTA per SM
+    ("all empty", 8, 1, 28, 4, 128, 513, 64, 4096, False, False, [0] * 8),
+    ("one full, seven empty", 8, 1, 28, 4, 128, 513, 64, 4096, False, False,
+     [4096] + [0] * 7),
+    ("tile multiples verify", 8, 5, 28, 4, 128, 513, 64, 4096, False, False,
+     [64, 128, 640, 1024, 4096, 192, 256, 0]),
+    ("b1 hkv1", 1, 1, 8, 1, 128, 65, 64, 4096, False, False, [4095]),
+    ("blk32 verify", 8, 5, 28, 4, 128, 1025, 32, 4096, False, False, None),
+    ("decode 8 x 2048", 8, 1, 28, 4, 128, 513, 64, 4096, False, True, [2048] * 8),
+]
+
+
+def paged_check(torch, got, ref):
+    """(ok, numbers): the paged kernel's partial against its twin's at the
+    limits above; rows without keys must be exact."""
+    (acc, m, l), (racc, rm, rl) = got, ref
+    rows = rl > 0
+    empty_ok = bool(torch.equal(l == 0, rl == 0) and (m[~rows] <= -1e29).all()
+                    and (acc[~rows] == 0).all())
+    m_err = (m[rows] - rm[rows]).abs().max().item() if rows.any() else 0.0
+    l_rel = ((l - rl).abs() / rl.abs().clamp_min(1e-6)).max().item()
+    acc_rel = ((acc - racc).norm() / racc.norm().clamp_min(1e-30)).item()
+    out, rout = acc / l.clamp_min(1e-30)[..., None], racc / rl.clamp_min(1e-30)[..., None]
+    diff = out - rout
+    err = diff.abs().max().item()
+    rel = (diff.norm() / rout.norm().clamp_min(1e-30)).item()
+    ok = (empty_ok and m_err <= PAGED_M_ATOL and l_rel <= PAGED_L_RTOL and acc_rel < REL_L2
+          and torch.allclose(out, rout, atol=ATOL, rtol=RTOL) and rel < REL_L2)
+    return bool(ok), dict(max_abs_err=err, rel_l2=rel, m_err=m_err, l_rel=l_rel,
+                          acc_rel_l2=acc_rel, empty_ok=empty_ok)
+
+
 def phase_paged_kernels(torch):
     """Phase 3, paged attention: kernel vs twin on the card."""
     from tpustack_torch.ops.paged_attention import (gather_pool, paged_attention_partial,
                                                     paged_attention_partial_ref)
 
-    cases = [  # (label, B, S, H, Hkv, D, pool blocks, blk, ctx, int8, on the LLM path)
-        ("decode", 8, 1, 28, 4, 128, 513, 64, 4096, False, True),
-        ("verify", 8, 5, 28, 4, 128, 513, 64, 4096, False, True),
-        ("int8 verify", 8, 5, 28, 4, 128, 513, 64, 4096, True, False),
-        ("mqa", 4, 1, 8, 1, 128, 129, 64, 2048, False, False),
-        ("gqa 8/2", 4, 5, 8, 2, 128, 129, 64, 2048, False, False),
-        ("mha", 4, 2, 8, 8, 128, 129, 64, 2048, False, False),
-        ("blk16 verify", 8, 5, 28, 4, 128, 2049, 16, 4096, False, False),
-    ]
     records = []
-    for label, b, s, h, hkv, d, n_pool, blk, ctx, int8, on_path in cases:
+    for label, b, s, h, hkv, d, n_pool, blk, ctx, int8, on_path, given in PAGED_CASES:
         q, pk, pv, bt, lens, ks, vs = paged_inputs(torch, b, s, h, hkv, d, n_pool, blk, ctx,
-                                                   int8)
+                                                   int8, lens=given)
         kw = dict(k_scale=ks, v_scale=vs)
-        acc, m, l = paged_attention_partial(q, pk, pv, bt, lens, **kw)
+        got = paged_attention_partial(q, pk, pv, bt, lens, **kw)
         torch.cuda.synchronize()
-        racc, rm, rl = paged_attention_partial_ref(q, pk, pv, bt, lens, **kw)
-        ok_rows = rl > 0
-        empty_ok = bool(torch.equal(l == 0, rl == 0) and (m[~ok_rows] <= -1e29).all()
-                        and (acc[~ok_rows] == 0).all())
-        m_err = (m[ok_rows] - rm[ok_rows]).abs().max().item()
-        l_rel = ((l - rl).abs() / rl.abs().clamp_min(1e-6)).max().item()
-        acc_rel = ((acc - racc).norm() / racc.norm()).item()
-        out, rout = acc / l.clamp_min(1e-30)[..., None], racc / rl.clamp_min(1e-30)[..., None]
-        diff = out - rout
-        err = diff.abs().max().item()
-        rel = (diff.norm() / rout.norm()).item()
-        ok = (empty_ok and m_err <= PAGED_M_ATOL and l_rel <= PAGED_L_RTOL and acc_rel < REL_L2
-              and torch.allclose(out, rout, atol=ATOL, rtol=RTOL) and rel < REL_L2)
+        ok, chk = paged_check(torch, got, paged_attention_partial_ref(q, pk, pv, bt, lens, **kw))
+        err, rel, m_err, l_rel, acc_rel = (chk[k] for k in ("max_abs_err", "rel_l2", "m_err",
+                                                            "l_rel", "acc_rel_l2"))
         nb = bt.shape[1]
         bound_ms, bound_by = paged_bound(b, s, h, hkv, d, lens.tolist(), blk, nb, int8)
         rec = dict(label=label, shape_q=[b, s, h, d], shape_pool=list(pk.shape),
@@ -523,7 +553,8 @@ def phase_paged_kernels(torch):
                                                                       **kw), 5)
         # the bisection body's copy: one layer's K and V gathered dense
         rec["gather_ms"] = device_ms(lambda: (gather_pool(pk, bt), gather_pool(pv, bt)), 20)
-        del racc, rm, rl, out, rout, diff
+        rec["share_of_bound"] = bound_ms / rec["ms"]
+        del got
         torch.cuda.empty_cache()
         log(f"kernel paged_attention {label}: q {rec['shape_q']} pool {rec['shape_pool']} "
             f"{'int8 ' if int8 else ''}max_abs_err={err:.3e} (atol {ATOL}, rtol {RTOL}) "
@@ -532,7 +563,8 @@ def phase_paged_kernels(torch):
             f"{'OK' if ok else 'MISMATCH'} kernel_ms={rec['ms']:.4f} "
             f"call_ms={rec['call_ms']:.4f} "
             f"plain_ms={rec['plain_ms']:.4f} gather_ms={rec['gather_ms']:.4f} "
-            f"library_ms=none bound_ms={bound_ms:.4f} ({bound_by})")
+            f"library_ms=none bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"share_of_bound={rec['share_of_bound']:.3f}")
         if not ok:
             raise SystemExit(f"paged_attention disagrees with its twin at {label}")
         records.append(rec)
@@ -666,6 +698,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         f"generated {[r[2]['tokens_predicted'] for r in results]}")
     assert prompt_tokens[1] >= sizes[1], prompt_tokens
     steps = sum(r["kernel_forward_steps"] for r in runs)
+    verify_steps = sum(r.get("spec_dispatches", 0) for r in runs)  # one forward step each
     assert all(r["decode_kernel"] == "paged_flash" and r["kernel_gather_dispatches"] == 0
                for r in runs), runs
     spec = props["speculative"]
@@ -678,7 +711,9 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     want_paged = cfg.n_layers * steps if on_card else 0
     want_flash = 2 * cfg.n_layers if on_card else 0
     log(f"llm: {len(runs)} engine run(s), {steps} kernel forward steps; paged_attention "
-        f"launches {paged_launches} (expected {cfg.n_layers} x {steps} = {want_paged}); "
+        f"launches {paged_launches} (expected {cfg.n_layers} x {steps} = {want_paged}: "
+        f"{cfg.n_layers} x {steps - verify_steps} decode, {cfg.n_layers} x {verify_steps} "
+        f"verify); "
         f"flash_attention launches {flash_launches} (expected {want_flash}: the "
         f">=1024-token prompt's panel prefill and the long suffix's streaming prefill, "
         f"one per layer)")
@@ -698,7 +733,8 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         solo_tokens=solo[2]["tokens_predicted"], solo_wall_s=solo_wall,
         batch_tokens=gen_tokens, batch_wall_s=batch_wall,
         aggregate_tokens_per_s=gen_tokens / batch_wall, spec_drafted=drafted,
-        spec_accepted=accepted, prefix_hits=hits, forward_steps=steps)
+        spec_accepted=accepted, prefix_hits=hits, forward_steps=steps,
+        verify_forward_steps=verify_steps)
     log(f"llm: solo TTFT {st['prompt_ms']:.1f} ms, decode {st['predicted_per_second']:.2f} "
         f"tokens/s ({solo[2]['tokens_predicted']} tokens, {solo_wall:.2f} s wall); 8 "
         f"concurrent: {gen_tokens} tokens in {batch_wall:.2f} s = "
@@ -714,7 +750,9 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         f"{props['prefix_cache']['cached_tokens_served']} tokens served from the cache)")
     del server, rt, gen
     return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e,
-                prefix_hit_tokens=prefix)
+                prefix_hit_tokens=prefix,
+                paged_launches_by_step={"decode": cfg.n_layers * (steps - verify_steps),
+                                        "verify": cfg.n_layers * verify_steps})
 
 
 def _decode_state(torch, gen, rt, lengths, seed=0):
@@ -774,18 +812,36 @@ def teacher_forced_check(torch, gen, rt, steps: int = 16) -> float:
 
 
 def profile_decode(torch, gen, rt, evals: int = 5) -> dict:
-    """Where one decode step at 8 rows goes: wall per step (host clock,
-    synchronised), device kernel time per step (torch.profiler), the idle
-    share, and the kernels that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where one decode step and one speculative verify step (4 drafts) at 8
+    rows of 2048 tokens go: wall per step (host clock, synchronised), device
+    kernel time per step (torch.profiler), the idle share, the paged
+    kernel's time and how many kernel names it shows under, and the kernels
+    that take the most device time."""
+    import numpy as np
 
     st, blocks = _decode_state(torch, gen, rt, [2048] * 8, seed=2)
+    draft = np.random.RandomState(3).randint(3, gen.cfg.vocab_size, (8, 4))
 
-    def step():
+    def decode():
         gen._decode_scan_paged(st["first"], st["cur"], st["active"], rt.arrays, st["bt"],
                                st["gens"], st["temp"], st["topk"], st["greedy"], 1,
                                flash=True)
+
+    def verify():  # accepted drafts land past the prefix, inside the rows' blocks
+        gen._spec_verify_paged(st["first"], draft, np.full(8, 4), st["cur"], st["active"],
+                               rt.arrays, st["bt"], st["gens"], st["temp"], st["topk"],
+                               st["greedy"], 4, flash=True)
+
+    out = {}
+    for name, step in (("decode", decode), ("verify", verify)):
+        out.update(_profile_step(torch, name, step, evals))
+    rt.pool.decref(blocks)
+    return out
+
+
+def _profile_step(torch, name, step, evals) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
@@ -798,23 +854,26 @@ def profile_decode(torch, gen, rt, evals: int = 5) -> dict:
         for _ in range(evals):
             step()
         torch.cuda.synchronize()
-    rt.pool.decref(blocks)
     kernels = [(e.key, e.self_device_time_total / evals / 1e3, e.count // evals)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
-        log("profile decode: device time not measured (the profiler saw no kernels)")
-        return dict(decode_step_wall_ms=wall_ms)
+        log(f"profile {name}: device time not measured (the profiler saw no kernels)")
+        return {f"{name}_step_wall_ms": wall_ms}
     busy = sum(ms for _, ms, _ in kernels)
+    paged_names = [k for k, _, _ in kernels if "paged_" in k]
     paged = sum(ms for k, ms, _ in kernels if "paged_" in k)
-    log(f"profile decode step (8 rows at 2048 tokens, 1 step): wall {wall_ms:.2f} ms, device "
+    paged_n = sum(n for k, _, n in kernels if "paged_" in k)
+    log(f"profile {name} step (8 rows at 2048 tokens, 1 step): wall {wall_ms:.2f} ms, device "
         f"kernels {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
         f"{sum(n for _, _, n in kernels)} kernel launches/step, paged_attention "
-        f"{paged:.3f} ms ({paged / busy:.3f} of device time)")
+        f"{paged:.3f} ms ({paged / busy:.3f} of device time, {paged_n} launches under "
+        f"{len(paged_names)} kernel name(s))")
     for k, ms, n in sorted(kernels, key=lambda r: -r[1])[:8]:
         log(f"    {ms:8.3f} ms  x{n:4d}  {k[:100]}")
-    return dict(decode_step_wall_ms=wall_ms, decode_step_device_ms=busy,
-                decode_idle_share=1 - busy / wall_ms, decode_paged_ms=paged)
+    return {f"{name}_step_wall_ms": wall_ms, f"{name}_step_device_ms": busy,
+            f"{name}_idle_share": 1 - busy / wall_ms, f"{name}_paged_ms": paged,
+            f"{name}_paged_kernel_names": len(paged_names)}
 
 
 def build_kernels() -> dict:
@@ -881,13 +940,16 @@ def main() -> int:
     for name, text in logs.items():
         log("\n".join(f"{name}: {ln.strip()}" for ln in text.splitlines()
                       if "registers" in ln or "spill" in ln))
-    # the flash kernel's main loop is wgmma fed by TMA, with no mma.sync left
-    sass = sass_counts("flash_attention")
-    if not sass:
-        log("flash_attention SASS: not counted (no cuobjdump beside nvcc or on PATH)")
-    else:
-        log(f"flash_attention SASS instructions: {sass}")
-        assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["HMMA"] == 0, sass
+    # both kernels' main loops are wgmma fed by TMA, with no mma.sync left
+    sass = {}
+    for name in ("flash_attention", "paged_attention"):
+        sass[name] = sass_counts(name)
+        if not sass[name]:
+            log(f"{name} SASS: not counted (no cuobjdump beside nvcc or on PATH)")
+        else:
+            log(f"{name} SASS instructions: {sass[name]}")
+            assert (sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0
+                    and sass[name]["HMMA"] == 0), (name, sass[name])
 
     # phase 3: kernels vs their twins (the LLM's flash shapes after phase 4b)
     records = phase_kernels(torch, FLASH_CASES, sm_mhz)
@@ -913,7 +975,8 @@ def main() -> int:
     paged_head = paged_records[0]
     paged_detail = [{k: r[k] for k in ("label", "shape_q", "shape_pool", "int8", "ms",
                                        "call_ms", "plain_ms", "gather_ms", "bound_ms", "bound_by",
-                                       "max_abs_err", "rel_l2", "m_err", "l_rel")}
+                                       "share_of_bound", "max_abs_err", "rel_l2", "m_err",
+                                       "l_rel")}
                     for r in paged_records]
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
@@ -926,18 +989,19 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "exp_bound_ms": head["exp_bound_ms"], "sm_clock_mhz": sm_mhz,
-        "shape": head["label"], "shapes": detail, "sass": sass,
+        "shape": head["label"], "shapes": detail, "sass": sass["flash_attention"],
     }, {
         "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
         "replaces": PAGED_REPLACES, "launches": llm["paged_launches"],
         "launches_by_path": {"llm": llm["paged_launches"]},
+        "launches_by_step": llm["paged_launches_by_step"],
         "ok": all(r["ok"] for r in paged_records),
         "max_abs_err": max(r["max_abs_err"] for r in paged_records),
         "rel_l2": max(r["rel_l2"] for r in paged_records),
         "ms": paged_head["ms"], "plain_ms": paged_head["plain_ms"],
         "bound_ms": paged_head["bound_ms"], "bound_by": paged_head["bound_by"],
         "library_ms": None, "gather_ms": paged_head["gather_ms"],
-        "shape": paged_head["label"], "shapes": paged_detail,
+        "shape": paged_head["label"], "shapes": paged_detail, "sass": sass["paged_attention"],
     }]
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
                                                        "dispatches", "unet_rel_l2")},

@@ -132,3 +132,51 @@ def test_flash_ab_planted_faults_match_the_kernel():
     for name, old, new in mod.FAULTS:
         assert src.count(old) == 1, name
         assert src.replace(old, new) != src
+
+
+def test_flash_ab_planted_paged_faults_match_the_kernel():
+    """The same for ``flash_ab.py --paged --faults`` and the paged kernel."""
+    spec = importlib.util.spec_from_file_location("flash_ab", os.path.join(REPO, "flash_ab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(os.path.join(_build.CSRC_DIR, "paged_attention.cu")) as f:
+        src = f.read()
+    assert [name for name, _, _ in mod.PAGED_FAULTS] == [
+        "merge_drops_a_piece", "no_rescale", "no_k_scale", "length_mask_off_by_one",
+        "counter_left_unreset"]
+    for name, old, new in mod.PAGED_FAULTS:
+        assert src.count(old) == 1, name
+        assert src.replace(old, new) != src
+
+
+def _paged_twin_inputs(smoke, lens):
+    q, pk, pv, bt, ln, _, _ = smoke.paged_inputs(torch, 4, 2, 8, 2, 16, 40, 16, 128, False,
+                                                 lens=lens)
+    return q.float(), pk.float(), pv.float(), bt, ln
+
+
+@pytest.mark.parametrize("lens", [None, [0, 0, 0, 0], [128, 0, 0, 0]],
+                         ids=["ragged", "all empty", "one full"])
+def test_paged_check_passes_the_twin_and_fails_a_dropped_tile(lens):
+    """``chip_smoke.paged_check`` holds the kernel to its twin; it takes the
+    twin itself, rows without keys included, and refuses a partial that lost
+    its last key tile."""
+    from tpustack_torch.ops.paged_attention import paged_attention_partial_ref
+
+    smoke = _smoke()
+    smoke.DEVICE = "cpu"
+    q, pk, pv, bt, ln = _paged_twin_inputs(smoke, lens)
+    ref = paged_attention_partial_ref(q, pk, pv, bt, ln)
+    ok, chk = smoke.paged_check(torch, ref, ref)
+    assert ok and chk["rel_l2"] == 0 and chk["empty_ok"]
+    if int(ln.max()) > 64:
+        short = paged_attention_partial_ref(q, pk, pv, bt, (ln - 64).clamp_min(0).int())
+        assert not smoke.paged_check(torch, short, ref)[0]
+
+
+def test_paged_bound_counts_the_valid_blocks():
+    smoke = _smoke()
+    ms, by = smoke.paged_bound(8, 1, 28, 4, 128, [4096] + [0] * 7, 64, 64, False)
+    want = (64 * 64 * 4 * 2 * 128 * 2 + 8 * 28 * 128 * 2 + 8 * 64 * 4 + 8 * 4
+            + 8 * 28 * 130 * 4) / 3.35e12 * 1e3
+    assert by == "bytes" and ms == pytest.approx(want)

@@ -12,7 +12,8 @@ CUDA tensors and raises when it cannot; it never falls back.  For CPU tensors
 it runs :func:`paged_attention_partial_ref`, the plain PyTorch version (a
 gather of the table-mapped blocks into a dense view, then the plain partial),
 which the tests hold against the JAX package and ``chip_smoke.py`` holds the
-kernel against on the card.
+kernel against on the card.  :func:`work_partition` is the kernel's split of
+the work over its persistent grid, in plain Python, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 from tpustack_torch.ops.attention import dot_product_attention_partial
 
 KERNEL = "paged_attention"
-TILE = 64             # key positions per kernel tile
-TARGET_BLOCKS = 264   # CUDA blocks the key split aims for: 2 per H100 SM
-MAX_ROWS = 64         # S * H / Hkv query rows one (b, kv head) block takes
+TILE = 64             # key positions per kernel tile: one unit of work
+MAX_ROWS = 64         # S * H / Hkv query rows: one wgmma tile per (b, kv head)
+MAX_BATCH = 1024      # batch rows one launch takes (the kernel's shared prefix sums)
+MAX_PAIRS = 1 << 16   # (b, kv head) pairs the counter buffer holds
 
 
 def _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale):
@@ -86,20 +88,68 @@ def _kernel():
     from tpustack_torch.ops import _build
 
     fn = _build.load(KERNEL).tpst_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def split_plan(batch: int, hkv: int, nb: int, blk: int):
-    """``(tiles_per_split, nsplit)``: how the kernel cuts each row's table
-    span into key splits so that about :data:`TARGET_BLOCKS` CUDA blocks run
-    (a split covers ``tiles_per_split`` 64-position tiles)."""
-    tiles = -(-nb * blk // TILE)
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, batch * hkv))))
-    per = -(-tiles // want)
-    return per, -(-tiles // per)
+@functools.lru_cache(maxsize=None)
+def _grid(index: int) -> int:
+    """The kernel's persistent grid on device ``index``: one CTA per SM."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_counters(index: int) -> torch.Tensor:
+    """One zeroed int32 buffer per device, allocated at the first call (make
+    that call before any CUDA-graph capture): the kernel counts the pieces
+    of each split (b, kv head) pair in it and leaves it zeroed, so launches
+    that share it must run one after another (one stream)."""
+    return torch.zeros(MAX_PAIRS, device=torch.device("cuda", index), dtype=torch.int32)
+
+
+def work_partition(lengths, hkv: int, nb: int, blk: int, grid: int) -> dict:
+    """The kernel's split of the work, in plain Python (the CPU tests hold
+    its properties; the kernel computes the same on the device).
+
+    A unit is one (row b, kv head, 64-key tile) with tile <
+    ``ceil(min(lengths[b], nb*blk) / 64)``, ordered (b, kv head, tile); pair
+    ``b * hkv + kvh`` holds a contiguous run of them.  CTA ``c`` of ``grid``
+    takes units ``[c*q + min(c, r), (c+1)*q + min(c+1, r))``, ``q, r =
+    divmod(U, grid)``.  Returns ``units`` (U), ``ranges`` (per CTA),
+    ``segments`` (per CTA: ``(pair, t0, t1, slot)`` tiles of one pair, slot
+    None when the CTA holds the whole pair, else its workspace slot ``2c``
+    or ``2c + 1``), ``pieces`` (per split pair: ``[(cta, slot, t0, t1)]`` in
+    key order) and ``empty`` (per pair with no keys: the CTA that writes its
+    empty partial)."""
+    tiles = [-(-min(max(int(n), 0), nb * blk) // TILE) for n in lengths]
+    pre = [0]
+    for n in tiles:
+        pre.append(pre[-1] + hkv * n)
+    units = pre[-1]
+    q, r = divmod(units, grid)
+    start = [c * q + min(c, r) for c in range(grid + 1)]
+    segments, pieces = [[] for _ in range(grid)], {}
+    for c in range(grid):
+        u = start[c]
+        while u < start[c + 1]:
+            b = max(i for i in range(len(tiles)) if pre[i] <= u and tiles[i])
+            kvh = (u - pre[b]) // tiles[b]
+            s_p = pre[b] + kvh * tiles[b]
+            e_p = s_p + tiles[b]
+            end = min(start[c + 1], e_p)
+            whole = u == s_p and e_p <= start[c + 1]
+            slot = None if whole else 2 * c + (1 if s_p > start[c] else 0)
+            pair = b * hkv + kvh
+            segments[c].append((pair, u - s_p, end - s_p, slot))
+            if not whole:
+                pieces.setdefault(pair, []).append((c, slot, u - s_p, end - s_p))
+            u = end
+    empty = {b * hkv + k: (b * hkv + k) % grid for b, n in enumerate(tiles) if n == 0
+             for k in range(hkv)}
+    return dict(units=units, ranges=list(zip(start[:-1], start[1:])), segments=segments,
+                pieces=pieces, empty=empty)
 
 
 def paged_attention_partial(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -117,10 +167,15 @@ def paged_attention_partial(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch
     ``k_scale``/``v_scale [N, blk, Hkv]`` f32 dequantise an int8 pool.
 
     CUDA: q contiguous bf16, pools contiguous bf16 (or int8 with scales),
-    ``D`` a multiple of 16 up to 128, ``blk`` a multiple of 16, and ``S * H /
-    Hkv <= 64``; anything else raises.  The kernel launches on the current
-    stream and ``paged_attention_partial.launches`` counts each launch.  CPU
-    tensors take :func:`paged_attention_partial_ref`."""
+    ``D`` a multiple of 16 up to 128, ``blk`` a multiple of 16, ``S * H /
+    Hkv <= 64`` and ``B <= 1024``; anything else raises.  One launch per
+    call, on the current stream, counted by
+    ``paged_attention_partial.launches``; the host reads nothing back from
+    the device, so the call can be captured in a CUDA graph and replayed
+    with ``lengths`` and ``block_tables`` changed in place.  Calls on one
+    device share the pair counters (:func:`_pair_counters`) and must not run
+    concurrently on two streams.  CPU tensors take
+    :func:`paged_attention_partial_ref`."""
     _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_partial_ref(q, pool_k, pool_v, block_tables, lengths,
@@ -160,25 +215,26 @@ def paged_attention_partial(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch
     if rows > MAX_ROWS:
         raise ValueError(f"paged_attention_partial kernel takes S*H/Hkv <= {MAX_ROWS} query "
                          f"rows per kv head; got {rows}")
+    if b > MAX_BATCH or b * hkv > MAX_PAIRS:
+        raise ValueError(f"paged_attention_partial kernel takes at most {MAX_BATCH} rows and "
+                         f"{MAX_PAIRS} (row, kv head) pairs; got {b} x {hkv}")
+    if n_pool * blk + TILE >= 2 ** 31:
+        raise ValueError("paged_attention_partial kernel takes pools of < 2^31 positions")
     acc = torch.empty((b, s, h, d), device=q.device, dtype=torch.float32)
     m = torch.empty((b, s, h), device=q.device, dtype=torch.float32)
     l = torch.empty((b, s, h), device=q.device, dtype=torch.float32)
     if b == 0:
         return acc, m, l
-    per, nsplit = split_plan(b, hkv, nb, blk)
-    rp = 16 * -(-rows // 16)
-    ws = (None, None, None)
-    if nsplit > 1:
-        ws = (torch.empty((b * hkv * nsplit * rp * d,), device=q.device, dtype=torch.float32),
-              torch.empty((b * hkv * nsplit * rp,), device=q.device, dtype=torch.float32),
-              torch.empty((b * hkv * nsplit * rp,), device=q.device, dtype=torch.float32))
+    grid = _grid(q.device.index)
+    slot = -(-rows * (d + 2) // 4) * 4  # a piece: acc [rows][D], m, l; 16-byte aligned
+    ws = torch.empty((2 * grid * slot,), device=q.device, dtype=torch.float32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ptr(k_scale),
                     ptr(v_scale), block_tables.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-                    m.data_ptr(), l.data_ptr(), *map(ptr, ws), b, s, h, hkv, d, blk, nb, n_pool,
-                    int(quant), per, nsplit, float(d ** -0.5 if scale is None else scale),
-                    stream)
+                    m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+                    _pair_counters(q.device.index).data_ptr(), b, s, h, hkv, d, blk, nb, n_pool,
+                    int(quant), grid, float(d ** -0.5 if scale is None else scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
     paged_attention_partial.launches += 1
