@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of the bound the kernel reaches.  For flash also ``exp_bound_ms``, the
    exponentials alone on the special-function units.  The LLM path's two
    flash shapes are timed after phase 4b, with the prefix hit's length
-   taken from that run.
+   taken from that run.  The Wan DiT's shapes (self- and cross-attention at
+   CFG batch 2 and at the batched pair's 4) are timed here too.
 4. The SD1.5 path: the port's SD1.5 server in-process at full width
    (``SD15Config.sd15()``, bf16, weights drawn from a seed), one
    ``POST /generate`` at 512x512x30 steps, then 8 concurrent requests that
@@ -43,8 +44,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    then one decode chunk teacher-forced through the kernel and through the
    gather path, and a torch.profiler breakdown of one decode step and one
    speculative verify step (4 drafts) at 8 rows of 2048 tokens.
+4c. The Wan T2V path: the port's graph server in-process at Wan2.1 1.3B
+   width (DiT 1536 x 30 layers, 12 heads of 128; umt5-xxl; the z=16 VAE;
+   bf16, weights drawn on the card from seed 0).  One prompt at the
+   reference client's defaults (512x320, 16 frames -> 13, 25 steps, uni_pc
+   -> Heun, cfg 6.0), built by the client's ``build_graph`` with SaveImage,
+   its 13 PNGs read back through ``/view``; then two prompts queued
+   together with the pixel budget raised to admit the pair, which must take
+   one dispatch of 2 and the streaming decoder, its row 0 repeating the
+   first prompt.  The exact flash launch count (60 per DiT evaluation) and
+   a zero batched-dispatch fallback count are checked; then one full-width
+   DiT evaluation through the kernel against the plain attention path, the
+   full against the streaming decode of one latent, and a torch.profiler
+   breakdown of one DiT evaluation at CFG batch 2.
 5. A JSON line of the end-to-end numbers, then, as the line before the last,
-   one JSON line listing every kernel with its numbers.
+   one JSON line listing every kernel with its numbers.  Each phase prints
+   its wall time.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 Peaks for ``bound_ms`` are the published H100 SXM figures (989 TFLOP/s
@@ -99,6 +114,22 @@ PAGED_M_ATOL, PAGED_L_RTOL = 1e-3, 1e-3
 # through 28 bf16 layers; the same limit as the UNet check above
 LLM_LOGITS_REL_L2 = 5e-2
 LLM_SLOTS, LLM_CTX, LLM_NEW = 8, 4096, 128
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Wan at the reference client's defaults (generate_wan_t2v.py)
+WAN_W, WAN_H, WAN_FRAMES, WAN_STEPS, WAN_CFG = 512, 320, 16, 25, 6.0
+# limits of the Wan checks, set from bf16 rounding before any card run:
+# one DiT evaluation through the kernel vs the plain attention path (the
+# UNet check's limit; P rounds to bf16 in the kernel, ~1e-3 relative per
+# attention, carried through 30 bf16 layers); the mean |difference| in uint8
+# levels of the full and the streaming decode of one latent (the same
+# convolutions on chunks: cuDNN may pick other algorithms, bf16 roundings of
+# ~0.4% through ~40 conv layers renormalised by RMS norms); and of the
+# pair's row 0 against the solo video of the same (prompt, seed) (a batch of
+# 4 DiT rows vs 2: other GEMM tilings, their bf16 differences carried
+# through 50 evaluations at cfg 6.0, then the streaming vs the full decode)
+WAN_DIT_REL_L2 = 5e-2
+WAN_STREAM_MEAN_LEVELS = 1.0
+WAN_PAIR_MEAN_LEVELS = 4.0
 
 
 def log(msg: str) -> None:
@@ -213,6 +244,10 @@ FLASH_CASES = [  # (label, q shape, kv shape, kwargs, the main path it is on)
     ("causal gqa offset", (1, 512, 8, 64), (1, 2048, 2, 64),
      dict(causal=True, q_offset=1024, kv_len=1536), None),
     ("ragged", (1, 77, 8, 40), (1, 300, 8, 40), {}, None),
+    ("wan self b1", (2, 2560, 12, 128), (2, 2560, 12, 128), {}, "wan"),
+    ("wan cross b1", (2, 2560, 12, 128), (2, 512, 12, 128), {}, "wan"),
+    ("wan self pair", (4, 2560, 12, 128), (4, 2560, 12, 128), {}, "wan"),
+    ("wan cross pair", (4, 2560, 12, 128), (4, 512, 12, 128), {}, "wan"),
 ]
 
 
@@ -876,6 +911,232 @@ def _profile_step(torch, name, step, evals) -> dict:
             f"{name}_paged_kernel_names": len(paged_names)}
 
 
+def _wan_client():
+    """The reference client script of the Wan path, loaded from the checkout."""
+    import importlib.util
+
+    path = os.path.join(REPO, "cluster-config", "apps", "llm", "scripts", "generate_wan_t2v.py")
+    spec = importlib.util.spec_from_file_location("generate_wan_t2v", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _wan_video(client, url, entry, size):
+    """The prompt's frames read back through ``/view``, checked for shape."""
+    import urllib.parse
+
+    import numpy as np
+
+    frames = []
+    for f in client.result_files(entry):
+        status, png = get(url + "/view?" + urllib.parse.urlencode(
+            {"filename": f["filename"], "subfolder": f["subfolder"], "type": f["type"]}))
+        assert status == 200, status
+        frames.append(png_to_array(png))
+    width, height = size
+    assert all(im.shape == (height, width, 3) for im in frames), [im.shape for im in frames]
+    return np.stack(frames)
+
+
+def _levels(a, b) -> dict:
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return dict(mean=float(d.mean()), p99=float(np.percentile(d, 99)), max=int(d.max()))
+
+
+def _wan_split(rec) -> dict:
+    """A dispatch's seconds: text encode, denoise (both end in a device
+    synchronise), and decode up to the first fetch of its frames."""
+    decode = rec["decode_enqueue_s"] + rec["fetched_at"] - rec["dispatched_at"]
+    return dict(text_s=rec["text_s"], denoise_s=rec["denoise_s"], decode_s=decode,
+                total_s=rec["text_s"] + rec["denoise_s"] + decode)
+
+
+def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int = WAN_FRAMES,
+              steps: int = WAN_STEPS):
+    """Phase 4c: the Wan graph server at Wan2.1 1.3B width; returns the flash
+    launch count and the measured numbers.  A CPU rehearsal passes the tiny
+    preset and a small size."""
+    import numpy as np
+
+    from tpustack_torch.models.wan import WanConfig, WanPipeline
+    from tpustack_torch.models.wan.dit import set_attn_impl
+    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.serving.graph_server import GraphServer, WanRuntime
+
+    on_card = DEVICE == "cuda"
+    client = _wan_client()
+    cfg = WanConfig.tiny() if preset == "tiny" else WanConfig.wan_1_3b()
+    t0 = time.perf_counter()
+    pipe = WanPipeline(cfg, device=DEVICE, seed=0)
+    sync(torch)
+    n_text = sum(p.numel() for p in pipe.text_encoder.parameters())
+    n_dit = sum(p.numel() for p in pipe.dit.parameters())
+    log(f"wan: {preset} (DiT dim {cfg.dit.dim} x {cfg.dit.num_layers} layers, "
+        f"{cfg.dit.num_heads} heads of {cfg.dit.dim // cfg.dit.num_heads}, {n_dit / 1e9:.3f} B "
+        f"params; umt5 dim {cfg.text.dim} x {cfg.text.num_layers}, {n_text / 1e9:.3f} B), "
+        f"{pipe.dtype}, built on {pipe.device} in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9 if on_card else 0:.2f} GB allocated")
+    width, height = size
+    # CUDA, cuBLAS and cuDNN initialisation outside the counts
+    pipe.generate("warm-up", frames=5, steps=1, width=64, height=64, seed=0)
+    sync(torch)
+    work = os.path.join(REPO, "build", "wan_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    rt = WanRuntime(models_dir=os.path.join(work, "models"),
+                    output_dir=os.path.join(work, "outputs"), pipeline=pipe)
+    server = GraphServer(rt)
+    url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+    n_px = pipe.pixel_frame_count(frames)
+    prompts = [("a red panda eating bamboo in a misty forest, cinematic", 1234),
+               ("a lighthouse on a cliff at dusk, waves crashing", 77)]
+    negative = "blurry, low quality, static"
+
+    def graph(prompt, seed):
+        return client.build_graph(prompt=prompt, negative=negative, seed=seed, width=width,
+                                  height=height, frames=frames, steps=steps, cfg=WAN_CFG,
+                                  sampler="uni_pc", scheduler="simple", denoise=1.0,
+                                  save_images=True, filename_prefix="wan_smoke")
+
+    def done(pid):
+        return client.wait_for_result(url, pid, timeout=900, poll=0.1, retries=0)
+
+    try:
+        client.preflight(url, client.DEFAULT_UNET, client.DEFAULT_CLIP, client.DEFAULT_VAE)
+        sync(torch)
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        solo = done(client.submit(url, graph(*prompts[0]), "chip_smoke", retries=0))
+        solo_wall = time.perf_counter() - t1
+        # the pair: both queued before the worker takes either, under a pixel
+        # budget that admits 2 x n_px x H x W
+        server.pixel_budget = 2 * n_px * height * width
+        t2 = time.perf_counter()
+        with server.hold():
+            pids = [client.submit(url, graph(p, s), "chip_smoke", retries=0)
+                    for p, s in (prompts[0], prompts[1])]
+        pair = [done(pid) for pid in pids]
+        pair_wall = time.perf_counter() - t2
+        sync(torch)
+        launches = flash_attention.launches
+        solo_video = _wan_video(client, url, solo, size)
+        pair_videos = [_wan_video(client, url, e, size) for e in pair]
+        fallbacks = server.batch_fallbacks
+        recs = list(server.dispatch_log)
+    finally:
+        server.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    assert [r["batch"] for r in recs] == [1, 2], [r["batch"] for r in recs]
+    assert not recs[0]["stream_decode"] and recs[1]["stream_decode"], recs
+    assert fallbacks == 0, fallbacks
+    for v in [solo_video] + pair_videos:
+        assert v.shape[0] == n_px, v.shape
+        assert float(v.std()) > 1.0, "a constant video"
+        assert len({f.tobytes() for f in v}) > 1, "every frame the same"
+    assert not np.array_equal(pair_videos[0], pair_videos[1]), "the pair's videos are equal"
+    evals = steps * 2  # uni_pc -> Heun: two DiT evaluations per step
+    per_eval = 2 * cfg.dit.num_layers if on_card else 0  # CPU tensors take the twin
+    expected = per_eval * evals * len(recs)
+    log(f"wan: {len(recs)} dispatches {[r['batch'] for r in recs]} (the pair's "
+        f"{2 * n_px * height * width} pixel-frames took the streaming decoder: "
+        f"{recs[1]['stream_decode']}), batched-dispatch fallbacks {fallbacks}; flash_attention "
+        f"launches {launches} (expected {per_eval} per DiT evaluation x {evals} evaluations x "
+        f"{len(recs)} dispatches = {expected})")
+    assert launches == expected, (launches, expected)
+    row0 = _levels(pair_videos[0], solo_video)
+    log(f"wan: the pair's row 0 vs the solo video of the same (prompt, seed): |diff| mean "
+        f"{row0['mean']:.3f} levels (limit {WAN_PAIR_MEAN_LEVELS}), p99 {row0['p99']:.0f}, max "
+        f"{row0['max']}; {n_px} frames of {height}x{width}, pixel std {solo_video.std():.1f}")
+    assert row0["mean"] <= WAN_PAIR_MEAN_LEVELS, row0
+    b1, b2 = _wan_split(recs[0]), _wan_split(recs[1])
+    log(f"wan: batch 1 {b1['total_s']:.3f} s/video (text {b1['text_s']:.3f}, denoise "
+        f"{b1['denoise_s']:.3f}, decode {b1['decode_s']:.3f}; client wall {solo_wall:.2f} s); "
+        f"pair {b2['total_s']:.3f} s = {b2['total_s'] / 2:.3f} s/video (text "
+        f"{b2['text_s']:.3f}, denoise {b2['denoise_s']:.3f}, streaming decode "
+        f"{b2['decode_s']:.3f}; client wall {pair_wall:.2f} s); peak {peak_gb:.2f} GB")
+
+    # one full-width DiT evaluation through the kernel vs the plain path
+    lat = pipe._lat_shape(frames, height, width)
+    g = torch.Generator(DEVICE).manual_seed(1)
+    x = torch.randn(2, *lat, generator=g, device=DEVICE)
+    t = torch.full((2,), 999.0, device=DEVICE)
+    ids, mask = pipe.tokenizer(["", prompts[0][0]])
+    with torch.inference_mode():
+        ctx = pipe.text_encoder(torch.as_tensor(ids).to(DEVICE), torch.as_tensor(mask).to(DEVICE))
+        v_kernel = pipe.dit(x.to(pipe.dtype), t, ctx)
+        set_attn_impl(pipe.dit, "xla")
+        v_plain = pipe.dit(x.to(pipe.dtype), t, ctx)
+        set_attn_impl(pipe.dit, cfg.dit.attn_impl)
+    rel = ((v_kernel - v_plain).norm() / v_plain.norm()).item()
+    finite = bool(torch.isfinite(v_kernel).all())
+    log(f"wan: full-width DiT eval, kernel vs plain attention: relative L2 {rel:.3e} (limit "
+        f"{WAN_DIT_REL_L2}), finite={finite}, |v| mean {v_plain.abs().mean().item():.3f}")
+    assert finite and rel < WAN_DIT_REL_L2, rel
+
+    # the full and the streaming decode of one latent
+    z = torch.randn(1, *lat, generator=g, device=DEVICE)
+    full = pipe._decode_fused(z).cpu().numpy()
+    streamed = pipe._decode_streaming(z).cpu().numpy()
+    dec = _levels(streamed, full)
+    log(f"wan: full vs streaming decode of one latent {list(z.shape)}: |diff| mean "
+        f"{dec['mean']:.4f} levels (limit {WAN_STREAM_MEAN_LEVELS}), p99 {dec['p99']:.0f}, "
+        f"max {dec['max']}")
+    assert full.shape == streamed.shape and dec["mean"] <= WAN_STREAM_MEAN_LEVELS, dec
+    e2e = dict(s_per_video_b1=b1["total_s"], s_per_video_pair=b2["total_s"] / 2, b1=b1,
+               pair=b2, solo_wall_s=solo_wall, pair_wall_s=pair_wall, dit_rel_l2=rel,
+               pair_row0_levels=row0, stream_decode_levels=dec, peak_gb=peak_gb,
+               dispatches=[r["batch"] for r in recs], batch_fallbacks=fallbacks)
+    if on_card:
+        e2e.update(profile_dit(torch, pipe, x, t, ctx))
+    del pipe, rt
+    return dict(launches=launches, e2e=e2e)
+
+
+def profile_dit(torch, pipe, x, t, ctx, evals: int = 3) -> dict:
+    """Where one DiT evaluation at CFG batch 2 goes: wall per evaluation
+    (host clock, synchronised, profiler off), device kernel time per
+    evaluation (torch.profiler), the idle share, the flash kernel's share,
+    and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xb = x.to(pipe.dtype)
+    with torch.inference_mode():
+        pipe.dit(xb, t, ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(evals):
+            pipe.dit(xb, t, ctx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / evals * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(evals):
+                pipe.dit(xb, t, ctx)
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / evals / 1e3, e.count // evals)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        log("profile wan DiT: device time not measured (the profiler saw no kernels)")
+        return {"dit_eval_wall_ms": wall_ms}
+    busy = sum(ms for _, ms, _ in kernels)
+    flash = sum(ms for k, ms, _ in kernels if "flash_attention_kernel" in k)
+    flash_n = sum(n for k, _, n in kernels if "flash_attention_kernel" in k)
+    log(f"profile wan DiT eval (CFG batch 2, {x.shape[1]}x{x.shape[2]}x{x.shape[3]} latent, "
+        f"{x.shape[1] * x.shape[2] * x.shape[3] // 4} tokens): wall {wall_ms:.2f} ms, device "
+        f"kernels {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(n for _, _, n in kernels)} kernel launches/eval, flash_attention {flash:.3f} ms "
+        f"x{flash_n} ({flash / busy:.3f} of device time)")
+    for k, ms, n in sorted(kernels, key=lambda r: -r[1])[:10]:
+        log(f"    {ms:8.3f} ms  x{n:4d}  {k[:100]}")
+    return {"dit_eval_wall_ms": wall_ms, "dit_eval_device_ms": busy,
+            "dit_idle_share": 1 - busy / wall_ms, "dit_flash_ms": flash,
+            "dit_flash_share": flash / busy}
+
+
 def build_kernels() -> dict:
     """Phase 2: one nvcc per source, all started together; {name: log}."""
     from tpustack_torch.ops import _build
@@ -951,20 +1212,35 @@ def main() -> int:
             assert (sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0
                     and sass[name]["HMMA"] == 0), (name, sass[name])
 
-    # phase 3: kernels vs their twins (the LLM's flash shapes after phase 4b)
-    records = phase_kernels(torch, FLASH_CASES, sm_mhz)
-    paged_records = phase_paged_kernels(torch)
+    walls = {"2 build": time.perf_counter() - t0}
 
-    # phase 4: the SD1.5 path; its pipeline is freed before the LLM's weights load
-    main_path = phase_main_path(torch)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        log(f"phase {name}: {walls[name]:.1f} s wall")
+        return out
+
+    # phase 3: kernels vs their twins (the LLM's flash shapes after phase 4b)
+    records = timed("3 flash", phase_kernels, torch, FLASH_CASES, sm_mhz)
+    paged_records = timed("3 paged", phase_paged_kernels, torch)
+
+    # phase 4: the SD1.5 path; each path's models are freed before the next loads
+    main_path = timed("4 sd15", phase_main_path, torch)
     gc.collect()
     torch.cuda.empty_cache()
 
     # phase 4b: the LLM path
-    llm = phase_llm(torch)
+    llm = timed("4b llm", phase_llm, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    records += phase_kernels(torch, llm_flash_cases(llm["prefix_hit_tokens"]), sm_mhz)
+    records += timed("3 flash llm", phase_kernels, torch,
+                     llm_flash_cases(llm["prefix_hit_tokens"]), sm_mhz)
+
+    # phase 4c: the Wan T2V path
+    wan = timed("4c wan", phase_wan, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 5: the kernels line, each at its main path's most frequent shape
     head = records[0]
@@ -981,8 +1257,9 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "also_replaces": KERNEL_ALSO_REPLACES,
-        "launches": main_path["launches"] + llm["flash_launches"],
-        "launches_by_path": {"sd15": main_path["launches"], "llm": llm["flash_launches"]},
+        "launches": main_path["launches"] + llm["flash_launches"] + wan["launches"],
+        "launches_by_path": {"sd15": main_path["launches"], "llm": llm["flash_launches"],
+                             "wan": wan["launches"]},
         "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL and REL_L2
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "rel_l2": max(r["rel_l2"] for r in records),
@@ -1005,7 +1282,8 @@ def main() -> int:
     }]
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
                                                        "dispatches", "unet_rel_l2")},
-                    "llm": llm["e2e"], "card": smi}))
+                    "llm": llm["e2e"], "wan": wan["e2e"], "card": smi,
+                    "phase_wall_s": walls}))
     log(json.dumps({"kernels": kernels}))  # the line before the last
     # phase 6
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -54,6 +54,14 @@ CASES = [
     # the 2048 bucket, and a 1024-row suffix after a 256-token prefix hit
     ((1, 2048, 28, 128), (1, 2048, 4, 128), dict(causal=True)),
     ((1, 1024, 28, 128), (1, 4096, 4, 128), dict(causal=True, q_offset=256, kv_len=1280)),
+    # the Wan DiT's two flash shapes at the default request (512x320, 13
+    # frames: 2560 tokens, 12 heads of 128, MHA, non-causal): self-attention
+    # and the text cross-attention over 512 keys, at CFG batch 2 and at the
+    # batched pair's 4
+    ((2, 2560, 12, 128), (2, 2560, 12, 128), {}),
+    ((2, 2560, 12, 128), (2, 512, 12, 128), {}),
+    ((4, 2560, 12, 128), (4, 2560, 12, 128), {}),
+    ((4, 2560, 12, 128), (4, 512, 12, 128), {}),
 ]
 
 
