@@ -30,7 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``SD15Config.sd15()``, bf16, weights drawn from a seed), one
    ``POST /generate`` at 512x512x30 steps, then 8 concurrent requests that
    ride one micro-batch; PNGs, headers and image content checked, and the
-   kernel launch counts read across exactly that run.  Then one full-width
+   kernel launch counts read across exactly that run.  Then one request at
+   1024x1024 (its level-2 attention, D=160, stays on the plain path: exactly
+   10 launches per UNet evaluation again), ``/readyz`` 200, and ``/metrics``
+   scraped before and after the phase's requests (the server's request and
+   image counters move by the number sent).  Then one full-width
    UNet evaluation with the kernel against the same evaluation on the plain
    attention path, and a torch.profiler breakdown of one UNet evaluation at
    batch 1 and 8 (wall, device kernel time, idle share, top kernels).
@@ -40,8 +44,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    system prompt, then 8 concurrent completions that share it (a repetitive
    body, a >=1024-token prompt outside the cache, a prefix hit with a
    >512-token suffix).  Statuses, bodies, ``/props``, the exact paged
-   kernel launch count, flash launches and a leak-free pool are checked;
-   then one decode chunk teacher-forced through the kernel and through the
+   kernel launch count, flash launches and a leak-free pool are checked.
+   Then the serving surface, with its own exact launch counts: a greedy
+   streamed ``/completion`` (a >=1024-token prompt) and a streamed
+   ``/v1/chat/completions``, each equal to the same request sent without
+   streaming (the time to the first event printed beside ``prompt_ms``);
+   the drain drill (``POST /admin/drain`` with ``TPUSTACK_ADMIN_TOKEN`` while
+   a 128-token completion decodes: ``/readyz`` 503 draining, a new
+   completion 503 with ``Retry-After``, the in-flight one whole, undrain,
+   ``/readyz`` 200, a leak-free pool); a ``timeout_s`` far below the decode
+   time answering 504 and freeing its blocks; a ``traceparent`` echoed as
+   ``X-Trace-Id`` with its span tree at ``/debug/traces/{id}``.  ``/metrics``
+   before and after all of 4b: ``/completion`` requests moved by the number
+   sent, free + used KV blocks equal to the pool, the fleet autoscaler's
+   three families present, and ``/props`` ``decode_kernel`` ``paged_flash``.
+   Then one decode chunk teacher-forced through the kernel and through the
    gather path, and a torch.profiler breakdown of one decode step and one
    speculative verify step (4 drafts) at 8 rows of 2048 tokens.
 4c. The Wan T2V path: the port's graph server in-process at Wan2.1 1.3B
@@ -56,7 +73,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a zero batched-dispatch fallback count are checked; then one full-width
    DiT evaluation through the kernel against the plain attention path, the
    full against the streaming decode of one latent, and a torch.profiler
-   breakdown of one DiT evaluation at CFG batch 2.
+   breakdown of one DiT evaluation at CFG batch 2.  ``/readyz`` 200, and
+   ``/metrics`` moved by the three prompts.
 5. A JSON line of the end-to-end numbers, then, as the line before the last,
    one JSON line listing every kernel with its numbers.  Each phase prints
    its wall time.
@@ -95,6 +113,7 @@ H100_SMS, EXP2_PER_CLOCK_PER_SM = 132, 16
 ATOL, RTOL = 4e-3, 1e-2
 REL_L2 = 1e-2  # ||out - ref|| / ||ref|| per shape
 STEPS, SIZE, BATCH = 30, 512, 8
+SIZE_LARGE = 1024  # SD1.5's largest served size here: level-2 attention at D=160
 DEVICE = "cuda"
 KERNEL_SRC = "tpustack_torch/ops/csrc/flash_attention.cu"
 KERNEL_REPLACES = "tpustack/ops/pallas/flash_attention.py:38"
@@ -114,6 +133,9 @@ PAGED_M_ATOL, PAGED_L_RTOL = 1e-3, 1e-3
 # through 28 bf16 layers; the same limit as the UNet check above
 LLM_LOGITS_REL_L2 = 5e-2
 LLM_SLOTS, LLM_CTX, LLM_NEW = 8, 4096, 128
+# phase 4b's deadline drill: far below a 128-token decode at full width
+# (~9 s at the ~14 tokens/s a solo row decodes)
+LLM_DEADLINE_S = 0.5
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Wan at the reference client's defaults (generate_wan_t2v.py)
 WAN_W, WAN_H, WAN_FRAMES, WAN_STEPS, WAN_CFG = 512, 320, 16, 25, 6.0
@@ -236,6 +258,50 @@ def get(url: str):
         return r.status, r.read()
 
 
+def http(url: str, body=None, headers=None, timeout: float = 900):
+    """(status, headers, body bytes) of a GET (``body`` None) or a JSON POST,
+    error statuses included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers=dict({"Content-Type": "application/json"},
+                                              **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def metric_sum(text: str, name: str, **labels) -> float:
+    """Sum of the samples of family ``name`` in a Prometheus exposition whose
+    labels include ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if not m or m.group(1) != name:
+            continue
+        have = dict(_LABEL.findall(m.group(2) or ""))
+        if all(have.get(k) == v for k, v in labels.items()):
+            total += float(m.group(3))
+    return total
+
+
+def scrape(url: str) -> str:
+    status, _, body = http(url + "/metrics")
+    assert status == 200, status
+    return body.decode()
+
+
+def check_ready(url: str, label: str) -> None:
+    status, _, body = http(url + "/readyz")
+    log(f"{label}: GET /readyz {status} {body.decode()}")
+    assert status == 200, (status, body)
+
+
 FLASH_CASES = [  # (label, q shape, kv shape, kwargs, the main path it is on)
     ("sd15 level0 b1", (2, 4096, 8, 40), (2, 4096, 8, 40), {}, "sd15"),
     ("sd15 level0 b8", (16, 4096, 8, 40), (16, 4096, 8, 40), {}, "sd15"),
@@ -356,6 +422,8 @@ def phase_main_path(torch):
     port = server.start(host="127.0.0.1", port=0)
     url = f"http://127.0.0.1:{port}"
     try:
+        check_ready(url, "main path")
+        metrics0 = scrape(url)
         flash_attention.launches = 0
         # one request, alone
         status, headers, png1 = post(url + "/generate", {
@@ -378,6 +446,17 @@ def phase_main_path(torch):
         launches = flash_attention.launches
         last_status, last_png = get(url + "/last")
         health_status, health = get(url + "/healthz")
+        sizes = [n for n, _ in server.batch_log]
+        # 1024x1024: the UNet's level-2 self-attention is [2, 1024, 8, 160],
+        # above the kernel's head dim; auto_impl keeps it on the plain path
+        server.batch_window_s = 0.0
+        flash_attention.launches = 0
+        status_1k, headers_1k, png_1k = post(url + "/generate", {
+            "prompt": "a harbour at dawn, wide angle", "steps": STEPS, "width": SIZE_LARGE,
+            "height": SIZE_LARGE, "seed": 7})
+        launches_1k = flash_attention.launches
+        s_1k = server.batch_log[-1][1]
+        metrics1 = scrape(url)
     finally:
         server.stop()
 
@@ -392,7 +471,6 @@ def phase_main_path(torch):
     assert len({p for p in pngs}) == len(pngs), "images repeat across seeds"
     assert last_status == 200 and last_png[:8] == b"\x89PNG\r\n\x1a\n"
     assert health_status == 200 and json.loads(health)["ok"] is True
-    sizes = [n for n, _ in server.batch_log]
     assert sizes == [1, BATCH], f"dispatches {sizes}: the 8 requests did not share one batch"
     per_eval = 10  # attn1 at UNet levels 0 and 1: 4 down + 6 up
     expected = per_eval * STEPS * len(sizes)
@@ -402,6 +480,22 @@ def phase_main_path(torch):
     s1, s8 = server.batch_log[0][1], server.batch_log[1][1]
     log(f"main path: batch 1 {s1:.3f} s/image; batch {BATCH} {s8:.3f} s -> "
         f"{BATCH / s8:.3f} images/s; X-Gen-Time {gen_times}")
+    img_1k = png_to_array(png_1k)
+    want_1k = per_eval * STEPS  # levels 0 and 1 again; level 2 (D=160) plain
+    log(f"main path: {SIZE_LARGE}x{SIZE_LARGE} request {status_1k}, {s_1k:.3f} s/image (X-Gen-Time "
+        f"{headers_1k.get('X-Gen-Time')}), pixel std {img_1k.std():.1f}; flash_attention "
+        f"launches {launches_1k} (expected {per_eval} x {STEPS} = {want_1k})")
+    assert status_1k == 200 and img_1k.shape == (SIZE_LARGE, SIZE_LARGE, 3)
+    assert img_1k.std() > 1.0, "a constant image"
+    assert launches_1k == want_1k, (launches_1k, want_1k)
+    # /metrics: the phase's requests moved the server's counters
+    sent = 1 + BATCH + 1
+    moved = {name: metric_sum(metrics1, name, **kw) - metric_sum(metrics0, name, **kw)
+             for name, kw in (("tpustack_http_requests_total",
+                               dict(server="sd", endpoint="/generate", status="200")),
+                              ("tpustack_sd_images_total", {}))}
+    log(f"main path: /metrics moved {moved} over {sent} requests")
+    assert all(v == sent for v in moved.values()), moved
 
     # the kernel inside the full-width UNet vs the plain attention path
     g = torch.Generator(DEVICE).manual_seed(1)
@@ -421,8 +515,9 @@ def phase_main_path(torch):
     assert finite and rel < 5e-2, rel
     for b in (1, BATCH):
         profile_unet(torch, pipe, b)
-    return dict(launches=launches, s_per_image_b1=s1, images_per_s_b8=BATCH / s8,
-                dispatches=sizes, unet_rel_l2=rel)
+    return dict(launches=launches + launches_1k, launches_1k=launches_1k, s_per_image_b1=s1,
+                images_per_s_b8=BATCH / s8, s_per_image_1024=s_1k, dispatches=sizes,
+                unet_rel_l2=rel)
 
 
 def profile_unet(torch, pipe, batch: int, evals: int = 3) -> None:
@@ -683,6 +778,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     ] + [{"prompt": system + f" Question {i}: what ran on node {i} today?"}
          for i in range(LLM_SLOTS - 3)]
     try:
+        check_ready(url, "llm")
         # warm-up outside the counts (CUDA and cuBLAS initialisation)
         status, _, _ = post_json(url + "/completion", {"prompt": "warm up", "n_predict": 4,
                                                        "temperature": 0,
@@ -690,6 +786,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         assert status == 200, status
         wait_engine_idle(server)
         sync(torch)
+        metrics0 = scrape(url)
         runs0 = len(server.run_log)
         spec0 = (server._spec_drafted, server._spec_accepted)
         paged_attention_partial.launches = 0
@@ -719,6 +816,9 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         flash_launches = flash_attention.launches
         runs = list(server.run_log)[runs0:]
         props = json.loads(urllib.request.urlopen(url + "/props", timeout=60).read())
+        # the serving surface: streams, the drain drill, a deadline, a trace
+        surface = llm_serving_surface(torch, server, url, system, long_body, n_new)
+        metrics1 = scrape(url)
     finally:
         server.stop()
 
@@ -761,6 +861,23 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     rt.cache.clear()
     assert rt.pool.n_free == rt.pool.capacity_blocks, rt.pool.stats()
     log(f"llm: after cache.clear() {rt.pool.n_free} of {rt.pool.capacity_blocks} blocks free")
+    # /metrics before and after all of phase 4b's traffic
+    sent = 1 + LLM_SLOTS + surface["completions_sent"]
+    moved = (metric_sum(metrics1, "tpustack_http_requests_total", server="llm",
+                        endpoint="/completion")
+             - metric_sum(metrics0, "tpustack_http_requests_total", server="llm",
+                          endpoint="/completion"))
+    free = metric_sum(metrics1, "tpustack_llm_kv_free_blocks")
+    used = metric_sum(metrics1, "tpustack_llm_kv_used_blocks")
+    fleet = ("tpustack_requests_shed_total", "tpustack_llm_kv_free_blocks",
+             "tpustack_llm_kv_used_blocks")
+    log(f"llm: /metrics: /completion requests moved by {moved:.0f} (sent {sent}); KV blocks "
+        f"free {free:.0f} + used {used:.0f} = {free + used:.0f} (pool "
+        f"{rt.pool.capacity_blocks}); shed draining "
+        f"{metric_sum(metrics1, 'tpustack_requests_shed_total', server='llm'):.0f}")
+    assert moved == sent, (moved, sent)
+    assert free + used == rt.pool.capacity_blocks, (free, used)
+    assert all(f"# TYPE {f} " in metrics1 for f in fleet), fleet
     st = solo[2]["timings"]
     gen_tokens = sum(r[2]["tokens_predicted"] for r in results)
     e2e = dict(
@@ -783,11 +900,225 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     prefix = props["prefix_cache"]["cached_tokens_served"] // hits // block * block
     log(f"llm: prefix hits of {prefix} tokens ({hits} hits, "
         f"{props['prefix_cache']['cached_tokens_served']} tokens served from the cache)")
+    e2e["surface"] = surface["e2e"]
     del server, rt, gen
-    return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e,
+    steps_all = steps + surface["forward_steps"]
+    verify_all = verify_steps + surface["verify_forward_steps"]
+    return dict(paged_launches=paged_launches + surface["paged_launches"],
+                flash_launches=flash_launches + surface["flash_launches"], e2e=e2e,
                 prefix_hit_tokens=prefix,
-                paged_launches_by_step={"decode": cfg.n_layers * (steps - verify_steps),
-                                        "verify": cfg.n_layers * verify_steps})
+                paged_launches_by_step={"decode": cfg.n_layers * (steps_all - verify_all),
+                                        "verify": cfg.n_layers * verify_all})
+
+
+def sse(url: str, body: dict, headers=None):
+    """(status, headers, [data payloads], seconds to the first event) of a
+    streamed POST; ``[DONE]`` stays a string."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers=dict({"Content-Type": "application/json"},
+                                              **(headers or {})))
+    t0 = time.perf_counter()
+    first, events = None, []
+    with urllib.request.urlopen(req, timeout=900) as r:
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            data = line[len(b"data: "):].strip().decode()
+            events.append(data if data == "[DONE]" else json.loads(data))
+        return r.status, dict(r.headers), events, first
+
+
+def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_new: int):
+    """Phase 4b, second half: the serving surface at full width, with its own
+    exact launch counts.  A greedy streamed ``/completion`` (a >=1024-token
+    prompt: the panel flash prefill) and a streamed ``/v1/chat/completions``,
+    each equal to the same request sent without streaming, each alone with
+    ``cache_prompt: false``, and the stream channel's token ids equal to a
+    plain run's; the drain drill (``POST /admin/drain`` while a
+    completion decodes, ``/readyz`` 503 draining, new work 503, the in-flight
+    completion whole, undrain, a leak-free pool); a 504 that frees its
+    blocks; and a ``traceparent`` round trip to ``/debug/traces/{id}``."""
+    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.ops.paged_attention import paged_attention_partial
+
+    on_card = DEVICE == "cuda"
+    cfg, rt = server.gen.cfg, server.paged
+    sent = 0
+
+    def completion(body, **kw):
+        nonlocal sent
+        sent += 1
+        return http(url + "/completion", body, **kw)
+
+    def leak_free(label):
+        wait_engine_idle(server)
+        p = json.loads(http(url + "/props")[2])
+        used, entries = p["paged_kv"]["used_blocks"], p["prefix_cache"]["entries"]
+        log(f"llm surface: {label}: {used} used blocks, {entries} held by the prefix cache")
+        assert used == entries, (label, p["paged_kv"], p["prefix_cache"])
+
+    runs0 = len(server.run_log)
+    paged_attention_partial.launches = 0
+    flash_attention.launches = 0
+    out = {}
+
+    # 1. streamed vs non-streamed, each alone, greedy, outside the cache
+    body = {"prompt": system + " Report: " + long_body, "n_predict": 64, "temperature": 0,
+            "cache_prompt": False}
+    sent += 1
+    st, hd, events, first_s = sse(url + "/completion", dict(body, stream=True))
+    wait_engine_idle(server)
+    st2, _, plain = completion(body)
+    plain = json.loads(plain)
+    wait_engine_idle(server)
+    final = events[-1]
+    text = "".join(e["content"] for e in events[:-1])
+    log(f"llm surface: streamed /completion {st}, {len(events) - 1} delta events, first "
+        f"event {first_s * 1e3:.1f} ms after the request (timings.prompt_ms "
+        f"{final['timings']['prompt_ms']:.1f}; the non-streamed body's "
+        f"{plain['timings']['prompt_ms']:.1f}), {final['tokens_predicted']} tokens; equals "
+        f"the non-streamed content: {text == plain['content']}")
+    assert st == 200 and st2 == 200 and hd["Content-Type"] == "text/event-stream"
+    assert final["stop"] is True and BODY_FIELDS <= set(final)
+    assert text == plain["content"], (text, plain["content"])
+    assert final["tokens_predicted"] == plain["tokens_predicted"]
+    # random weights pick mostly ids past the 49408-entry BPE vocab, which
+    # decode to no text: hold the stream channel's token ids themselves to a
+    # plain run's, through the server's own admission and engine
+    eos = server.tok.eos_id
+
+    def ids_of(stream: bool):
+        r = server._admit(body["prompt"], 64, 0.0, 40, None, False, True, stream=stream)
+        t0 = time.perf_counter()
+        server._enqueue(r)
+        got, first = [], None
+        while stream:
+            tok = r.stream.get(timeout=600)
+            if tok is None:
+                break
+            first = first if first is not None else time.perf_counter() - t0
+            got.append(tok)
+        assert r.done.wait(600) and r.error is None, r.error
+        return got, [t for t in r.result[0] if t != eos], first
+
+    streamed_ids, _, first_tok_s = ids_of(True)
+    _, plain_ids, _ = ids_of(False)
+    wait_engine_idle(server)
+    log(f"llm surface: the stream channel's {len(streamed_ids)} token ids equal a plain run's: "
+        f"{streamed_ids == plain_ids}; first token on the stream {first_tok_s * 1e3:.1f} ms "
+        f"after enqueue; text of the plain body {len(plain['content'])} characters")
+    assert streamed_ids == plain_ids and len(plain_ids) >= 1
+    out.update(stream_first_event_ms=first_s * 1e3, stream_first_token_ms=first_tok_s * 1e3,
+               stream_prompt_ms=final["timings"]["prompt_ms"],
+               plain_prompt_ms=plain["timings"]["prompt_ms"],
+               stream_tokens_per_s=final["timings"]["predicted_per_second"])
+
+    chat = {"messages": [{"role": "system", "content": "Answer briefly."},
+                         {"role": "user", "content": "What ran on node 3 today?"}],
+            "max_tokens": 48, "temperature": 0, "cache_prompt": False}
+    st, _, events, first_chat = sse(url + "/v1/chat/completions", dict(chat, stream=True))
+    wait_engine_idle(server)
+    st2, _, plain_chat = http(url + "/v1/chat/completions", chat)
+    plain_chat = json.loads(plain_chat)
+    wait_engine_idle(server)
+    chunks = events[:-1]
+    text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    log(f"llm surface: streamed chat {st}, {len(chunks)} chunks then {events[-1]}, first "
+        f"event {first_chat * 1e3:.1f} ms; equals the non-streamed content: "
+        f"{text == plain_chat['choices'][0]['message']['content']}")
+    assert st == 200 and st2 == 200 and events[-1] == "[DONE]"
+    assert all(c["object"] == "chat.completion.chunk" for c in chunks)
+    assert text == plain_chat["choices"][0]["message"]["content"]
+    out["chat_first_event_ms"] = first_chat * 1e3
+
+    # 2. the drain drill
+    os.environ["TPUSTACK_ADMIN_TOKEN"] = "chip-smoke-admin"
+    admin = {"X-Admin-Token": "chip-smoke-admin"}
+    assert http(url + "/admin/drain", {}, {"X-Admin-Token": "wrong"})[0] == 403
+    inflight = {}
+    drill = {"prompt": system + " Question: list every node and its jobs.", "n_predict": 128,
+             "temperature": 0, "cache_prompt": False}
+    t = threading.Thread(target=lambda: inflight.update(r=completion(drill)))
+    t.start()
+    t_end = time.time() + 120
+    while not (server.resilience.inflight == 1 and server._engine is not None
+               and server.metrics["tpustack_llm_running_requests"].value == 1):
+        assert time.time() < t_end, "the drill's completion never started decoding"
+        time.sleep(0.005)
+    st_drain, _, drained = http(url + "/admin/drain", {}, admin)
+    st_ready, hd_ready, _ = http(url + "/readyz")
+    st_new, hd_new, _ = completion({"prompt": "late arrival", "n_predict": 4})
+    t.join(timeout=600)
+    st_fly, _, fly = inflight["r"]
+    fly = json.loads(fly)
+    st_undrain, _, undrained = http(url + "/admin/drain", {"undrain": True}, admin)
+    st_ready2 = http(url + "/readyz")[0]
+    del os.environ["TPUSTACK_ADMIN_TOKEN"]
+    log(f"llm surface: drain drill: /admin/drain {st_drain} {json.loads(drained)}; /readyz "
+        f"{st_ready} X-Shed-Reason {hd_ready.get('X-Shed-Reason')}; a new completion "
+        f"{st_new} Retry-After {hd_new.get('Retry-After')}; the in-flight completion "
+        f"{st_fly} with {fly.get('tokens_predicted')} tokens (eos {fly.get('stopped_eos')}); "
+        f"undrain {st_undrain}, /readyz {st_ready2}")
+    assert st_drain == 200 and json.loads(drained)["draining"] is True
+    assert st_ready == 503 and hd_ready.get("X-Shed-Reason") == "draining"
+    assert st_new == 503 and int(hd_new["Retry-After"]) >= 1
+    budget = min(128, cfg.max_seq - fly["tokens_evaluated"])
+    assert st_fly == 200 and (fly["tokens_predicted"] == budget or fly["stopped_eos"]), fly
+    assert st_undrain == 200 and json.loads(undrained)["draining"] is False
+    assert st_ready2 == 200
+    leak_free("after the drain drill")
+
+    # 3. a deadline far below the decode time: 504, and its blocks freed
+    t0 = time.perf_counter()
+    st, hd, late = completion({"prompt": system + " Question: summarise the ledger.",
+                               "n_predict": 128, "temperature": 0, "cache_prompt": False,
+                               "timeout_s": LLM_DEADLINE_S})
+    late = json.loads(late)
+    log(f"llm surface: timeout_s {LLM_DEADLINE_S} on a 128-token completion: {st} phase "
+        f"{late.get('phase')} after {time.perf_counter() - t0:.2f} s")
+    assert st == 504 and late["phase"] in ("queued", "decode"), (st, late)
+    assert hd.get("X-Shed-Reason") == "deadline"
+    leak_free("after the 504")
+
+    # 4. a client's traceparent: X-Trace-Id back, the span tree retrievable
+    trace_id, parent = "5ee" + "0" * 26 + "c41", "a1b2c3d4e5f60718"
+    st, hd, _ = completion({"prompt": "trace me", "n_predict": 8, "temperature": 0,
+                            "cache_prompt": False},
+                           headers={"traceparent": f"00-{trace_id}-{parent}-01"})
+    wait_engine_idle(server)
+    st_t, _, rec = http(f"{url}/debug/traces/{trace_id}")
+    rec = json.loads(rec)
+    names = [sp["name"] for sp in rec.get("spans", [])]
+    log(f"llm surface: traceparent request {st}, X-Trace-Id {hd.get('X-Trace-Id')}; "
+        f"/debug/traces/{{id}} {st_t}: spans {names}")
+    assert st == 200 and hd.get("X-Trace-Id") == trace_id and st_t == 200
+    assert names[0] == "POST /completion" and rec["spans"][0]["parent_id"] == parent
+    assert {"queue_wait", "prefill", "wave"} <= set(names)
+
+    wait_engine_idle(server)
+    sync(torch)
+    paged = paged_attention_partial.launches
+    flash = flash_attention.launches
+    runs = list(server.run_log)[runs0:]
+    steps = sum(r["kernel_forward_steps"] for r in runs)
+    verify = sum(r.get("spec_dispatches", 0) for r in runs)
+    want_paged = cfg.n_layers * steps if on_card else 0
+    # the long prompt's four from-zero prefills (streamed and not, over HTTP
+    # and through the engine) take the panel flash kernel at bucket 2048;
+    # every other prompt is under 1024 tokens
+    want_flash = 4 * cfg.n_layers if on_card else 0
+    log(f"llm surface: {len(runs)} engine runs, {steps} kernel forward steps; paged_attention "
+        f"launches {paged} (expected {cfg.n_layers} x {steps} = {want_paged}: "
+        f"{cfg.n_layers} x {steps - verify} decode, {cfg.n_layers} x {verify} verify); "
+        f"flash_attention launches {flash} (expected {want_flash}); {sent} /completion "
+        "requests")
+    assert all(r["decode_kernel"] == "paged_flash" for r in runs) or not on_card, runs
+    assert paged == want_paged and steps > 0, (paged, want_paged)
+    assert flash == want_flash, (flash, want_flash)
+    return dict(paged_launches=paged, flash_launches=flash, forward_steps=steps,
+                verify_forward_steps=verify, completions_sent=sent, e2e=out)
 
 
 def _decode_state(torch, gen, rt, lengths, seed=0):
@@ -1004,8 +1335,10 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
         return client.wait_for_result(url, pid, timeout=900, poll=0.1, retries=0)
 
     try:
+        check_ready(url, "wan")
         client.preflight(url, client.DEFAULT_UNET, client.DEFAULT_CLIP, client.DEFAULT_VAE)
         sync(torch)
+        metrics0 = scrape(url)
         flash_attention.launches = 0
         t1 = time.perf_counter()
         solo = done(client.submit(url, graph(*prompts[0]), "chip_smoke", retries=0))
@@ -1025,6 +1358,7 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
         pair_videos = [_wan_video(client, url, e, size) for e in pair]
         fallbacks = server.batch_fallbacks
         recs = list(server.dispatch_log)
+        metrics1 = scrape(url)
     finally:
         server.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
@@ -1046,6 +1380,12 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
         f"launches {launches} (expected {per_eval} per DiT evaluation x {evals} evaluations x "
         f"{len(recs)} dispatches = {expected})")
     assert launches == expected, (launches, expected)
+    moved = {name: metric_sum(metrics1, name, **kw) - metric_sum(metrics0, name, **kw)
+             for name, kw in (("tpustack_http_requests_total",
+                               dict(server="graph", endpoint="/prompt", status="200")),
+                              ("tpustack_graph_prompts_total", dict(status="success")))}
+    log(f"wan: /metrics moved {moved} over 3 prompts")
+    assert all(v == 3 for v in moved.values()), moved
     row0 = _levels(pair_videos[0], solo_video)
     log(f"wan: the pair's row 0 vs the solo video of the same (prompt, seed): |diff| mean "
         f"{row0['mean']:.3f} levels (limit {WAN_PAIR_MEAN_LEVELS}), p99 {row0['p99']:.0f}, max "
@@ -1281,7 +1621,8 @@ def main() -> int:
         "shape": paged_head["label"], "shapes": paged_detail, "sass": sass["paged_attention"],
     }]
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
-                                                       "dispatches", "unet_rel_l2")},
+                                                       "s_per_image_1024", "dispatches",
+                                                       "unet_rel_l2")},
                     "llm": llm["e2e"], "wan": wan["e2e"], "card": smi,
                     "phase_wall_s": walls}))
     log(json.dumps({"kernels": kernels}))  # the line before the last

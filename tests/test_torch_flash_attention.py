@@ -140,16 +140,22 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("args,want", [
-    ((4096, 4096, False, "cuda", BF16), "flash"),   # SD1.5 level 0 self-attention
-    ((1024, 1024, False, "cuda", BF16), "flash"),   # level 1
-    ((256, 256, False, "cuda", BF16), "xla"),       # level 2 / mid: too short
-    ((4096, 77, False, "cuda", BF16), "xla"),       # cross-attention: 77 keys
-    ((4096, 4096, True, "cuda", BF16), "xla"),      # masked
-    ((4096, 4096, False, "cpu", BF16), "xla"),      # no kernel off the card
-    ((4096, 4096, False, "cuda", F32), "xla"),      # the kernel takes bf16 only
-    ((32768, 32768, False, "cuda", BF16), "flash"),  # no panel ceiling on Hopper
-    ((1024, 256, False, "cuda", BF16), "flash"),    # both bounds inclusive
-    ((1023, 4096, False, "cuda", BF16), "xla"),
+    ((4096, 4096, False, "cuda", BF16, 40), "flash"),   # SD1.5 level 0 self-attention
+    ((1024, 1024, False, "cuda", BF16, 80), "flash"),   # level 1
+    ((256, 256, False, "cuda", BF16, 160), "xla"),      # level 2 / mid: too short
+    ((4096, 77, False, "cuda", BF16, 40), "xla"),       # cross-attention: 77 keys
+    ((4096, 4096, True, "cuda", BF16, 40), "xla"),      # masked
+    ((4096, 4096, False, "cpu", BF16, 40), "xla"),      # no kernel off the card
+    ((4096, 4096, False, "cuda", F32, 40), "xla"),      # the kernel takes bf16 only
+    ((32768, 32768, False, "cuda", BF16, 128), "flash"),  # no panel ceiling on Hopper
+    ((1024, 256, False, "cuda", BF16, 64), "flash"),    # both bounds inclusive
+    ((1023, 4096, False, "cuda", BF16, 64), "xla"),
+    # head dims: SD1.5 1024x1024 level 2 is [B, 1024, 8, 160], above the
+    # kernel's 128; D=128 (Qwen2.5, the Wan DiT) is the kernel's widest
+    ((1024, 1024, False, "cuda", BF16, 160), "xla"),
+    ((1024, 1024, False, "cuda", BF16, 128), "flash"),
+    ((4096, 4096, False, "cuda", BF16, 136), "xla"),
+    ((4096, 4096, False, "cuda", BF16, 36), "xla"),     # not a multiple of 8
 ])
 def test_auto_impl_rule(args, want):
     assert auto_impl(*args) == want

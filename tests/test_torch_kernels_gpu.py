@@ -116,6 +116,27 @@ def test_flash_kernel_rows_without_keys_are_exact_zeros(cuda):
 
 
 @pytest.mark.gpu
+def test_unet_attention_above_the_kernels_head_dim_takes_the_plain_path(cuda):
+    """SD1.5 at 1024x1024: the level-2 self-attention ``[2, 1024, 8, 160]``
+    (CFG batch 2) through the UNet's attention block with ``impl="auto"``
+    launches no kernel, raises nothing and equals the plain path."""
+    from tpustack_torch.models.sd15.unet import CrossAttention
+
+    torch.manual_seed(0)
+    attn = CrossAttention(1280, 8).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 1024, 1280, device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        attn.impl = "auto"
+        out = attn(x)
+        attn.impl = "xla"
+        ref = attn(x)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    assert out.shape == (2, 1024, 1280) and torch.equal(out, ref)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 64, 2, 40, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):

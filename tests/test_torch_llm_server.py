@@ -4,8 +4,9 @@ The llama.cpp surface of ``tpustack/serving/llm_server.py`` on the port's
 standard-library server: the completion body fields, tokenize/detokenize,
 the OpenAI chat shape, ``/props``, 429 + ``Retry-After`` when the KV pool
 cannot cover a request, and the clear refusals of what the port does not
-serve yet (streaming, the dense solo engine, tensor parallelism, weight-only
-int8, checkpoints, tokenizer directories, draft-model drafting).
+serve yet (the dense solo engine, tensor parallelism, weight-only int8,
+checkpoints, tokenizer directories, draft-model drafting).  Streaming is
+held in ``tests/test_torch_llm_stream.py``.
 """
 
 import json
@@ -165,14 +166,9 @@ def test_bad_requests_answer_400(server):
     url = server.url + "/completion"
     assert _call(url, {"prompt": ""})[0] == 400
     assert _call(url, {"prompt": "x", "seed": "seven"})[0] == 400
-    status, _, out = _call(url, {"prompt": "x", "stream": True})
-    assert status == 400 and "stream" in out["error"]
     assert _call(url, {"prompt": "x" * 200})[0] == 400  # longer than ctx 128
     big = _call(url, {"prompt": "x", "n_predict": 10_000})  # clamped to ctx: served
     assert big[0] == 200
-    status, _, out = _call(server.url + "/v1/chat/completions",
-                           {"messages": [{"role": "user", "content": "x"}], "stream": True})
-    assert status == 400 and "stream" in out["error"]["message"]
 
 
 @pytest.mark.parametrize("env,what", [

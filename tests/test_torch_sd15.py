@@ -267,6 +267,12 @@ def test_port_imports_no_jax_or_tpustack():
     banned = ("jax", "flax", "tpustack")
     files = _port_sources()
     assert len(files) > 15
+    # the serving surface's standard-library copies of JAX-free reference
+    # modules are held to the same rule
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {f"tpustack_torch/obs/{m}.py" for m in ("metrics", "catalog", "trace", "flight",
+                                                    "device", "http")} <= rel
+    assert {"tpustack_torch/serving/resilience.py", "tpustack_torch/utils/knobs.py"} <= rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -24,8 +24,17 @@ Stats keep the JAX engine's ``decode_kernel``,
 chosen view (``chunk`` per plain dispatch, one per verify), so a run's paged
 kernel launches are exactly ``n_layers * kernel_forward_steps``.
 
-Left out: QoS preemption, the host RAM tier, chunked prefill, flight
-records, tenant ledger, tracing and the sanitizer.
+Serving hooks, as in the JAX engine: each request's ``on_tokens`` gets its
+accepted tokens once per fetched wave (the SSE cadence), ``cancelled()`` is
+polled at every chunk boundary and retires the row, releasing its blocks (a
+deadline or a disconnected stream), ``span_ctx`` parents the row's
+``prefill`` and ``wave`` spans under its HTTP root span, ``on_progress``
+hears ``"prefill"`` before each admission dispatch and ``"wave"`` at each
+fetched wave (the watchdog's beats and the fault injector's points), and a
+flight recorder gets one record per wave.
+
+Left out: QoS preemption, the host RAM tier, chunked prefill, the tenant
+ledger and the sanitizer.
 """
 
 from __future__ import annotations
@@ -48,9 +57,14 @@ log = get_logger("models.llm_continuous")
 
 @dataclasses.dataclass
 class SlotRequest:
-    """One request.  ``on_done(tokens, stats)``: once, at retirement
-    (``tokens`` None and ``stats["error"]`` when admission failed).
-    ``seed``: the slot generator's seed (None draws one).
+    """One request.  ``on_tokens(toks)``: the row's accepted new tokens,
+    once per fetched wave (a terminal stop token included).
+    ``on_done(tokens, stats)``: once, at retirement (``tokens`` None and
+    ``stats["error"]`` when admission failed).  ``cancelled()``: polled at
+    chunk boundaries; True retires the row without further decode.
+    ``seed``: the slot generator's seed (None draws one).  ``span_ctx``: the
+    request's trace context (``obs.trace.SpanContext``), passed explicitly
+    because engine threads do not inherit the handler's contextvars.
 
     ``prefix``: ``(n_cached, block_ids)``, shared pool blocks the lookup
     already incref'd; ``kv_blocks``: fresh blocks the server allocated at
@@ -61,9 +75,12 @@ class SlotRequest:
     ids: List[int]
     max_new: int
     sample: SampleConfig
+    on_tokens: Optional[Callable[[List[int]], None]] = None
     on_done: Optional[Callable[[Optional[List[int]], Dict], None]] = None
+    cancelled: Callable[[], bool] = lambda: False
     seed: Optional[int] = None
     prefix: Optional[Tuple[int, list]] = None
+    span_ctx: Optional[object] = None
     kv_blocks: Optional[List[int]] = None
     on_prefill_blocks: Optional[Callable[[List[int]], None]] = None
     speculative: bool = True
@@ -72,7 +89,7 @@ class SlotRequest:
 class _Slot:
     __slots__ = ("req", "out", "budget", "gen_id", "t0", "prefill_s", "dispatched", "done",
                  "pending", "cached", "blocks", "alloc", "spec_ema", "spec_idle",
-                 "stride_ema")
+                 "stride_ema", "span")
 
     def __init__(self):
         self.req: Optional[SlotRequest] = None
@@ -90,6 +107,7 @@ class _Slot:
         self.spec_ema = 1.0
         self.spec_idle = 0
         self.stride_ema = 1.0
+        self.span = None      # the row's open prefill or wave span
 
 
 class _PendingWave:
@@ -113,7 +131,9 @@ class ContinuousEngine:
     def __init__(self, gen: Generator, paged, slots: int = 8, chunk: int = 16,
                  stop_tokens: Tuple[int, ...] = (), depth: int = 2,
                  paged_flash: Optional[bool] = None, spec=None,
-                 on_spec: Optional[Callable[[int, int], None]] = None):
+                 on_spec: Optional[Callable[[int, int], None]] = None,
+                 on_progress: Optional[Callable[[str], None]] = None, tracer=None,
+                 flight=None, queue_depth: Optional[Callable[[], int]] = None):
         if paged is None:
             raise ValueError("the port's engine is paged only: pass a PagedKVRuntime")
         if gen.cfg.max_seq != paged.max_seq:
@@ -135,8 +155,17 @@ class ContinuousEngine:
                 self._drafter = PromptLookupDrafter(ngram_max=self.spec.ngram_max,
                                                     ngram_min=self.spec.ngram_min)
         self.on_spec = on_spec
-        self.paged_flash = (resolve_paged_flash(gen.device) if paged_flash is None
-                            else bool(paged_flash))
+        # the resilience layer's progress points and the observability
+        # hooks; all None keeps the engine hook-free
+        self._on_progress = on_progress
+        self.tracer = tracer
+        self.flight = flight
+        self._queue_depth_fn = queue_depth
+        self._last_wave_t: Optional[float] = None
+        self.paged_flash = (resolve_paged_flash(
+            gen.device, gen.cfg, gen.cache_dtype, paged.block,
+            self.spec.tokens if self.spec is not None else 0, slots)
+            if paged_flash is None else bool(paged_flash))
         self._draft_memo: Dict[int, Tuple[Tuple[int, int, int], List[int]]] = {}
         self._bt = np.zeros((slots, paged.blocks_per_seq), np.int32)
         self._slots_view = None
@@ -147,6 +176,7 @@ class ContinuousEngine:
         self._reset_counters()
 
     def _reset_counters(self):
+        self._last_wave_t = None
         self._spec_drafted = self._spec_accepted = 0
         self._spec_dispatches = self._plain_steps = 0
         self._gather_dispatches = self._flash_dispatches = 0
@@ -263,6 +293,15 @@ class ContinuousEngine:
             valid.append((i, req, budget))
         if not valid:
             return gen_ctr
+        if self.tracer is not None:
+            for i, req, budget in valid:
+                if req.span_ctx is not None:
+                    slots[i].span = self.tracer.start_span(
+                        "prefill", parent=req.span_ctx,
+                        attrs={"slot": i, "prompt_tokens": len(req.ids),
+                               "cached_tokens": slots[i].cached, "budget": budget})
+        if self._on_progress is not None:
+            self._on_progress("prefill")
 
         groups: Dict[int, list] = {}
         prefix_rows = []
@@ -353,7 +392,13 @@ class ContinuousEngine:
             s.pending = False
             s.prefill_s = t_first
             s.out = [first]
-            if first in self.stop_tokens or budget <= 1:
+            if s.span is not None:
+                s.span.set_attribute("prefill_s", round(t_first, 6))
+                s.span.end()
+                s.span = self.tracer.start_span("wave", parent=req.span_ctx, attrs={"slot": i})
+            if req.on_tokens is not None:
+                req.on_tokens([first])
+            if first in self.stop_tokens or budget <= 1 or req.cancelled():
                 s.done = True
                 self._retire(state, slots, i, live)
 
@@ -383,6 +428,10 @@ class ContinuousEngine:
         s = slots[i]
         req, out = s.req, s.out
         s.req, s.done, s.pending = None, True, False
+        if s.span is not None:
+            s.span.set_attribute("generated_tokens", len(out))
+            s.span.end()
+            s.span = None
         if s.blocks:
             # one decref per reference; blocks the prefix cache also holds
             # survive, the rest are free before on_done fires
@@ -465,6 +514,9 @@ class ContinuousEngine:
         except BaseException:
             # the pool outlives this run: leaked references would shrink it
             for s in slots:
+                if s.span is not None:
+                    s.span.end(status="error")
+                    s.span = None
                 if s.blocks:
                     try:
                         self.paged.pool.decref(s.blocks)
@@ -529,14 +581,56 @@ class ContinuousEngine:
             self._wave_last = now
             self._wave_ctr += 1
 
+    def _deliver(self, s: _Slot, accepted: List[int]) -> None:
+        """Hand a row its accepted tokens of this wave (span event, stream)."""
+        if not accepted:
+            return
+        if s.span is not None:
+            s.span.add_event("wave", tokens=len(accepted))
+        if s.req.on_tokens is not None:
+            s.req.on_tokens(accepted)
+
+    def _flight_wave(self, slots, kind: str, tokens: int, weight_passes: int,
+                     occupancy: int, drafted: int = 0, accepted: int = 0) -> None:
+        """One flight record for a fetched wave (plain chunk or verify):
+        host-side values only, the fetch has already synchronised."""
+        if self.flight is None:
+            return
+        now = time.time()
+        rec = {"wave": self._wave_ctr, "occupancy": occupancy, "slots": self.B,
+               "tokens": int(tokens), "weight_passes": int(weight_passes),
+               "drafted": int(drafted), "accepted": int(accepted),
+               "wave_s": (round(now - self._last_wave_t, 6)
+                          if self._last_wave_t is not None else None),
+               "kv_free": self.paged.pool.n_free, "kv_used": self.paged.pool.n_used,
+               "kernel": "paged_flash" if self.paged_flash else "gather"}
+        self._last_wave_t = now
+        if self._queue_depth_fn is not None:
+            rec["queue_depth"] = int(self._queue_depth_fn())
+        slowest, age = None, 0.0
+        for s in slots:
+            if s.req is not None and now - s.t0 > age:
+                age, slowest = now - s.t0, getattr(s.req.span_ctx, "trace_id", None)
+        if age > 0.0:
+            rec["slowest_age_s"] = round(age, 3)
+            rec["slowest_trace_id"] = slowest
+        self.flight.record(kind, **rec)
+
     def _consume_block(self, state, slots, block: np.ndarray, snapshot) -> None:
         """Host bookkeeping for one fetched plain chunk."""
+        if self._on_progress is not None:
+            self._on_progress("wave")
         self._mark_wave()
         live = self._live(slots)
+        wave_tokens = 0
         for i, gid, offset in snapshot:
             s = slots[i]
             if s.req is None or s.gen_id != gid or s.done:
                 continue  # the lane is garbage for a retired / reassigned slot
+            if s.req.cancelled():
+                s.done = True
+                self._retire(state, slots, i, live)
+                continue
             assert len(s.out) - 1 == offset, (len(s.out), offset)
             accepted = []
             for t in (int(x) for x in block[i]):
@@ -545,10 +639,13 @@ class ContinuousEngine:
                 if t in self.stop_tokens or len(s.out) >= s.budget:
                     s.done = True
                     break
+            wave_tokens += len(accepted)
             s.spec_idle += 1
             s.stride_ema = 0.75 * s.stride_ema + 0.25 * max(1, len(accepted))
+            self._deliver(s, accepted)
             if s.done:
                 self._retire(state, slots, i, live)
+        self._flight_wave(slots, "wave", wave_tokens, self.chunk, live)
 
     def _drain_idle(self, state, slots, dispatch_ok) -> None:
         """Nothing in flight: resolve every admission (blocking) and retire
@@ -650,12 +747,19 @@ class ContinuousEngine:
         self._count_dispatch(1)
         state["first"] = last
         self._spec_dispatches += 1
+        if self._on_progress is not None:
+            self._on_progress("wave")
         self._mark_wave()
         alpha = self.spec.ema_alpha
         live = self._live(slots)
+        wave_tokens = wave_drafted = wave_accepted = 0
         for i, gid in rows:
             s = slots[i]
             if s.req is None or s.gen_id != gid or s.done:
+                continue
+            if s.req.cancelled():
+                s.done = True
+                self._retire(state, slots, i, live)
                 continue
             k_i = int(dlen[i])
             m = min(int(accs[i]), k_i)
@@ -664,6 +768,10 @@ class ContinuousEngine:
                 s.spec_idle = 0
                 self._spec_drafted += k_i
                 self._spec_accepted += m
+                wave_drafted += k_i
+                wave_accepted += m
+                if s.span is not None:
+                    s.span.add_event("spec", drafted=k_i, accepted=m)
                 if self.on_spec is not None:
                     try:
                         self.on_spec(k_i, m)
@@ -678,10 +786,14 @@ class ContinuousEngine:
                 if t in self.stop_tokens or len(s.out) >= s.budget:
                     s.done = True
                     break
+            wave_tokens += len(accepted)
             s.dispatched = len(s.out) - 1
             s.stride_ema = 0.75 * s.stride_ema + 0.25 * max(1, len(accepted))
+            self._deliver(s, accepted)
             if s.done:
                 self._retire(state, slots, i, live)
+        # one verify dispatch = one weight pass for all its strides
+        self._flight_wave(slots, "verify", wave_tokens, 1, live, wave_drafted, wave_accepted)
 
     def _run_loop_spec(self, state, slots, chain, admit_free, dispatch_ok) -> None:
         """Variable-stride loop: when the host is caught up and a slot has a

@@ -44,21 +44,43 @@ class SampleConfig:
     greedy: bool = False
 
 
-def resolve_paged_flash(device: torch.device) -> bool:
-    """The ``TPUSTACK_PAGED_FLASH`` verdict: read the pool in place through
-    the paged kernel (True) or gather a dense per-row copy every dispatch
-    (False, the bisection path).  ``auto`` (the default) is on for CUDA and
-    off on the CPU, where the kernel's plain twin is itself a gather."""
+def resolve_paged_flash(device: torch.device, cfg, dtype: torch.dtype, block: int,
+                        spec_tokens: int, slots: int) -> bool:
+    """The ``TPUSTACK_PAGED_FLASH`` verdict on an engine's geometry: read the
+    pool in place through the paged kernel (True) or gather a dense per-row
+    copy every dispatch (False, the bisection path).
+
+    The geometry is the model ``cfg`` (head dim, head ratio), the compute
+    ``dtype``, the KV ``block`` size, the speculative draft length (a verify
+    step has ``spec_tokens + 1`` query rows per head) and the slot count,
+    held to the kernel's contract
+    (``ops.paged_attention.contract_violation``).  ``auto`` (the default)
+    is on for CUDA where the contract holds and off elsewhere (on the CPU
+    the kernel's plain twin is itself a gather); ``1`` on CUDA outside the
+    contract raises here, at startup, naming the condition (on the CPU it
+    selects the twin, which takes any geometry); ``0`` is off."""
     import os
 
+    from tpustack_torch.ops.paged_attention import contract_violation
+
     val = os.environ.get("TPUSTACK_PAGED_FLASH", "auto").strip().lower()
-    if val in ("", "auto"):
-        return device.type == "cuda"
-    if val in ("1", "true", "yes", "on"):
-        return True
     if val in ("0", "false", "no", "off"):
         return False
-    raise ValueError(f"TPUSTACK_PAGED_FLASH={val!r} is not auto or a boolean")
+    if val not in ("", "auto", "1", "true", "yes", "on"):
+        raise ValueError(f"TPUSTACK_PAGED_FLASH={val!r} is not auto or a boolean")
+    why = contract_violation(
+        blk=block, rows=(spec_tokens + 1) * (cfg.n_heads // cfg.n_kv_heads),
+        head_dim=cfg.head_dim, q_dtype=dtype, batch=slots, kv_heads=cfg.n_kv_heads)
+    if device.type != "cuda":
+        return val not in ("", "auto")
+    if why is None:
+        return True
+    if val in ("", "auto"):
+        log.info("paged decode attention: gather path (the paged kernel takes %s)", why)
+        return False
+    raise ValueError(f"TPUSTACK_PAGED_FLASH=1 but this engine's geometry is outside the "
+                     f"paged kernel's contract: it takes {why}; unset the knob (auto) to "
+                     "serve through the gather path")
 
 
 class Generator:

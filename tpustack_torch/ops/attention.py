@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from tpustack_torch.ops.flash_attention import flash_attention
+from tpustack_torch.ops.flash_attention import flash_attention, takes_head_dim
 
 # provisional CUDA crossover (not yet measured on H100): the kernel for
 # sequences long enough that the [Sq, Sk] score round trip dominates
@@ -28,11 +28,16 @@ FLASH_MIN_SK = 256
 
 
 def auto_impl(sq: int, sk: int, has_mask: bool, device_type: str,
-              dtype: torch.dtype) -> str:
+              dtype: torch.dtype, d: int) -> str:
     """The ``impl="auto"`` rule: the flash kernel on CUDA for unmasked bf16
-    attention with ``sq >= 1024`` and ``sk >= 256``, the plain path otherwise
-    (the kernel takes bf16 only, so float32 work such as the ``tiny()``
-    preset's stays plain).
+    attention with ``sq >= 1024``, ``sk >= 256`` and a head dim the kernel
+    takes (a multiple of 8 up to 128), the plain path otherwise (the kernel
+    takes bf16 only, so float32 work such as the ``tiny()`` preset's stays
+    plain).
+
+    Head dims above 128 never reach the kernel: SD1.5's level-2
+    self-attention at 1024x1024 (``[B, 1024, 8, 160]``) takes the plain
+    path, as the JAX rule weighs ``d`` (``tpustack/ops/attention.py``).
 
     Provisional.  The TPU rule also bounds batch*heads and the K/V panel
     length (``PANEL_MAX_KV``); both encode the TPU's sequential grid and
@@ -42,7 +47,7 @@ def auto_impl(sq: int, sk: int, has_mask: bool, device_type: str,
     1024 tokens) to the kernel at every batch size; cross-attention (77
     keys), the level-2/mid attention, CLIP and the VAE stay plain."""
     return ("flash" if device_type == "cuda" and dtype == torch.bfloat16 and not has_mask
-            and sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK else "xla")
+            and sq >= FLASH_MIN_SQ and sk >= FLASH_MIN_SK and takes_head_dim(d) else "xla")
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,7 +82,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "batch/head axes")
 
     if impl == "auto":
-        impl = auto_impl(sq, sk, mask is not None, q.device.type, q.dtype)
+        impl = auto_impl(sq, sk, mask is not None, q.device.type, q.dtype, d)
         if impl == "flash" and causal and sq > sk:
             impl = "xla"  # flash rejects this shape (below); auto must not
     if k_scale is not None or v_scale is not None:

@@ -22,6 +22,13 @@ from typing import Optional
 import torch
 
 KERNEL = "flash_attention"
+MAX_HEAD_DIM = 128  # the kernel's largest head dim (its wgmma N tile and smem plan)
+
+
+def takes_head_dim(d: int) -> bool:
+    """True when the CUDA kernel takes head dim ``d``: a multiple of 8 up
+    to :data:`MAX_HEAD_DIM`."""
+    return d % 8 == 0 and 0 < d <= MAX_HEAD_DIM
 
 
 def _check_shapes(q, k, v):
@@ -108,8 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention kernel needs contiguous tensors; {name} is not")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
-    if d % 8 or d > 128:
-        raise ValueError(f"flash_attention kernel takes D <= 128, a multiple of 8; got {d}")
+    if not takes_head_dim(d):
+        raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM}, a multiple of 8; "
+                         f"got {d}")
     off = 0 if q_offset is None else int(q_offset)
     klen = sk if kv_len is None else int(kv_len)
     if not 0 <= klen <= sk:

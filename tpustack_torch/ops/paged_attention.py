@@ -33,6 +33,28 @@ MAX_BATCH = 1024      # batch rows one launch takes (the kernel's shared prefix 
 MAX_PAIRS = 1 << 16   # (b, kv head) pairs the counter buffer holds
 
 
+def contract_violation(*, blk: int, rows: int, head_dim: int, q_dtype: torch.dtype,
+                       batch: int = 1, kv_heads: int = 1) -> Optional[str]:
+    """What the CUDA kernel needs that this geometry lacks, or None when it
+    takes it: bf16 ``q``, ``head_dim`` a multiple of 16 up to 128, ``blk`` a
+    multiple of 16, ``rows = S * H / Hkv <= MAX_ROWS`` query rows per kv
+    head, at most ``MAX_BATCH`` rows and ``MAX_PAIRS`` (row, kv head)
+    pairs.  The wrapper raises with it; the LLM server checks its engine's
+    geometry with it at startup (``llm_generate.resolve_paged_flash``)."""
+    if q_dtype != torch.bfloat16:
+        return f"bf16 q and pools (got {q_dtype})"
+    if head_dim % 16 or head_dim > 128:
+        return f"D <= 128, a multiple of 16 (got {head_dim})"
+    if blk % 16:
+        return f"blk a multiple of 16 (got {blk})"
+    if rows > MAX_ROWS:
+        return f"S*H/Hkv <= {MAX_ROWS} query rows per kv head (got {rows})"
+    if batch > MAX_BATCH or batch * kv_heads > MAX_PAIRS:
+        return (f"at most {MAX_BATCH} rows and {MAX_PAIRS} (row, kv head) pairs "
+                f"(got {batch} x {kv_heads})")
+    return None
+
+
 def _check(q, pool_k, pool_v, block_tables, lengths, k_scale, v_scale):
     if q.dim() != 4 or pool_k.dim() != 4:
         raise ValueError("q must be [B, S, H, D] and the pools [N, blk, Hkv, D]")
@@ -198,26 +220,19 @@ def paged_attention_partial(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch
                              f"{name} is not")
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention_partial kernel needs 16-byte aligned {name}")
+    rows = s * (h // hkv)
+    why = contract_violation(blk=blk, rows=rows, head_dim=d, q_dtype=q.dtype, batch=b,
+                             kv_heads=hkv)
+    if why is not None:
+        raise ValueError(f"paged_attention_partial kernel takes {why}")
     want = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or pool_k.dtype != want or pool_v.dtype != want:
+    if pool_k.dtype != want or pool_v.dtype != want:
         raise ValueError(f"paged_attention_partial kernel takes bf16 q and {want} pools "
                          f"(int8 with scales); got {q.dtype}, {pool_k.dtype}, {pool_v.dtype}")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise ValueError("paged_attention_partial kernel takes float32 scales")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_tables and lengths must be int32")
-    if d % 16 or d > 128:
-        raise ValueError(f"paged_attention_partial kernel takes D <= 128, a multiple of 16; "
-                         f"got {d}")
-    if blk % 16:
-        raise ValueError(f"paged_attention_partial kernel takes blk a multiple of 16; got {blk}")
-    rows = s * (h // hkv)
-    if rows > MAX_ROWS:
-        raise ValueError(f"paged_attention_partial kernel takes S*H/Hkv <= {MAX_ROWS} query "
-                         f"rows per kv head; got {rows}")
-    if b > MAX_BATCH or b * hkv > MAX_PAIRS:
-        raise ValueError(f"paged_attention_partial kernel takes at most {MAX_BATCH} rows and "
-                         f"{MAX_PAIRS} (row, kv head) pairs; got {b} x {hkv}")
     if n_pool * blk + TILE >= 2 ** 31:
         raise ValueError("paged_attention_partial kernel takes pools of < 2^31 positions")
     acc = torch.empty((b, s, h, d), device=q.device, dtype=torch.float32)

@@ -10,7 +10,9 @@ either server:
 - ``GET  /history/{prompt_id}``   -> ``{id: {status, outputs}}`` once known
 - ``GET  /view?filename=&subfolder=&type=`` -> an output file (kept inside
   the output dir)
-- ``GET  /healthz``               -> worker state
+- ``GET  /healthz``               -> liveness and worker state (503 only when
+  the watchdog fired); ``GET /readyz`` -> readiness (503 while draining)
+- ``GET  /metrics``, ``/debug/traces[/{trace_id}]``, ``/debug/flight``
 
 Node set: UNETLoader, CLIPLoader, VAELoader, CLIPTextEncode,
 EmptyHunyuanLatentVideo (``batch_size`` rows seeded ``seed + i``), KSampler,
@@ -35,8 +37,16 @@ Env: ``PORT`` (8181), ``WAN_PRESET`` (``wan_1_3b`` | ``tiny``),
 ``WAN_TEXT_QUANT`` (none; ``int8`` is not ported and fails at startup),
 ``WAN_MAX_BATCH``, ``WAN_BATCH_PIXEL_BUDGET``.  Weights are drawn from seed
 0; checkpoint files under ``WAN_MODELS_DIR`` cannot be loaded yet and
-raise.  Not ported: the observability, QoS, resilience and ``/profile``
-layers of the JAX server.
+raise.
+
+Resilience (``serving.resilience``), as in the JAX server: SIGTERM drains
+(``/prompt`` refuses with 503 + Retry-After while the worker publishes every
+accepted prompt, then the process exits 0), ``TPUSTACK_MAX_QUEUE_DEPTH``
+sheds with 429, a queued prompt past its deadline
+(``TPUSTACK_REQUEST_TIMEOUT_S`` or the body's ``timeout_s``) is answered
+through ``/history`` instead of taking a dispatch, and
+``TPUSTACK_WATCHDOG_S`` flips ``/healthz`` when a dispatch hangs.  Not
+ported: the QoS and ``/profile`` layers of the JAX server.
 """
 
 from __future__ import annotations
@@ -53,13 +63,19 @@ import shutil
 import subprocess
 import threading
 import time
-import urllib.parse
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tpustack_torch.obs import catalog as obs_catalog
+from tpustack_torch.obs import device as obs_device
+from tpustack_torch.obs import flight as obs_flight
+from tpustack_torch.obs import http as obs_http
+from tpustack_torch.obs import trace as obs_trace
+from tpustack_torch.obs.http import Request, json_reply
+from tpustack_torch.serving.resilience import ResilienceManager
 from tpustack_torch.utils import get_logger
 from tpustack_torch.utils.image import array_to_png
 
@@ -520,7 +536,11 @@ class GraphServer:
     (batch, streaming decode or not, the pipeline's text/denoise/decode
     seconds, and when its frames were first fetched)."""
 
-    def __init__(self, runtime: Optional[WanRuntime] = None):
+    def __init__(self, runtime: Optional[WanRuntime] = None, registry=None, tracer=None):
+        self._registry = registry
+        self.metrics = obs_catalog.build(registry)
+        obs_device.install(registry)
+        self.tracer = tracer if tracer is not None else obs_trace.TRACER
         self.rt = runtime or WanRuntime()
         self.executor = GraphExecutor(self.rt)
         self.max_batch = max(1, int(os.environ.get("WAN_MAX_BATCH", "4")))
@@ -535,6 +555,20 @@ class GraphServer:
         self.dispatch_log: List[dict] = []           # appended by the worker only
         self._open = threading.Event()  # cleared while hold() queues without dispatching
         self._open.set()
+        # per-prompt absolute deadlines and submit times (monotonic), and the
+        # "prompt" spans that run from submit to publish
+        self._deadline_at: Dict[str, float] = {}  # guarded by _lock
+        self._t_submit: Dict[str, float] = {}     # guarded by _lock
+        self._prompt_spans: Dict[str, obs_trace.Span] = {}  # guarded by _lock
+        # drain on SIGTERM, queued-prompt deadlines, 429 backpressure, the
+        # watchdog and the fault hooks.  /prompt answers at once, so drain
+        # waits on accepted-but-unpublished prompts, and Retry-After comes
+        # from submit-to-publish times (observe_http off)
+        self.resilience = ResilienceManager(
+            "graph", registry, concurrency=self.max_batch, queue_depth=self._queue.qsize,
+            extra_busy=self._graph_busy, observe_http=False, expected_service_s=60.0)
+        self.flight = obs_flight.register(obs_flight.FlightRecorder(
+            "graph", meta={"max_batch": self.max_batch}))
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
         self._worker = threading.Thread(target=self._work, daemon=True, name="wan-graph-worker")
@@ -549,6 +583,14 @@ class GraphServer:
             yield
         finally:
             self._open.set()
+
+    def _graph_busy(self) -> bool:
+        """Accepted work the drain must wait for: queued, planned, or
+        dispatched-but-unpublished prompts."""
+        with self._lock:
+            if self._running or self._pending:
+                return True
+        return not self._queue.empty()
 
     # ---- worker
     def _work(self):
@@ -581,6 +623,7 @@ class GraphServer:
                     stop = True
                     break
                 pids.append(nxt)
+            self.metrics["tpustack_graph_queue_depth"].set(self._queue.qsize())
 
             plans = []  # (pid, entry, outputs, finish, specs)
             for pid in pids:
@@ -588,6 +631,14 @@ class GraphServer:
                     graph = self._pending.pop(pid, None)
                     self._running.append(pid)
                     entry = self._history[pid]
+                    deadline = self._deadline_at.pop(pid, None)
+                if deadline is not None and time.monotonic() > deadline:
+                    # expired while queued: refuse to start it (its device
+                    # work would be wasted) and publish the verdict
+                    self.resilience.note_deadline("queued")
+                    self._publish_error(pid, entry, "DeadlineExceeded: request deadline "
+                                        "exceeded (phase=queued)")
+                    continue
                 specs: List[Tuple[SampleSpec, Frames]] = []
 
                 def hook(spec, specs=specs):
@@ -599,7 +650,7 @@ class GraphServer:
                     outputs, finish = self.executor.execute(graph, hook)
                 except Exception as e:  # noqa: BLE001 - a bad graph fails its prompt only
                     log.exception("prompt %s failed", pid)
-                    self._publish_error(pid, entry, e)
+                    self._publish_error(pid, entry, f"{type(e).__name__}: {e}")
                     continue
                 plans.append((pid, entry, outputs, finish, specs))
 
@@ -649,6 +700,9 @@ class GraphServer:
                  " (first run of this signature)" if new else "")
         t0 = time.perf_counter()
         try:
+            # watchdog beat + fault point; an injected device error takes the
+            # dispatch-failure path below
+            self.resilience.progress("prefill")
             vid = pipe.generate_many_async(
                 [{"prompt": s.positive.text, "negative_prompt": s.negative.text,
                   "seed": s.seed} for s, _ in members], **kw)
@@ -657,6 +711,7 @@ class GraphServer:
                 log.warning("batched dispatch of %d failed (%s); serving its rows one by "
                             "one on the same device", len(members), e)
                 self.batch_fallbacks += 1
+                self.metrics["tpustack_graph_batch_fallback_total"].inc()
                 self._no_batch.add(key)
                 for m in members:
                     self._dispatch_one(key, [m])
@@ -676,99 +731,169 @@ class GraphServer:
         rec = dict(pipe.last_run, dispatch_s=time.perf_counter() - t0,
                    dispatched_at=time.perf_counter())
         self.dispatch_log.append(rec)
+        self.flight.record("dispatch", batch=len(members), width=width, height=height,
+                           frames=frames_n, steps=steps, sampler=sampler,
+                           dispatch_s=round(rec["dispatch_s"], 6),
+                           queue_depth=self._queue.qsize())
+        self.metrics["tpustack_request_phase_latency_seconds"].labels(
+            server="graph", phase="dispatch").observe(rec["dispatch_s"])
         for i, (_, fr) in enumerate(members):
             fr.array, fr.record = vid[i], rec
+        # a dispatch boundary: the fault injector's mid-request SIGTERM point
+        self.resilience.progress("wave")
 
-    def _publish_error(self, pid: str, entry: HistoryEntry, e: BaseException) -> None:
+    def _publish_error(self, pid: str, entry: HistoryEntry, message: str) -> None:
+        self.metrics["tpustack_graph_prompts_total"].labels(status="error").inc()
         with self._lock:
             entry.status_str = "error"
-            entry.messages.append(f"{type(e).__name__}: {e}")
+            entry.messages.append(message)
             entry.completed = True
             if pid in self._running:
                 self._running.remove(pid)
+            self._t_submit.pop(pid, None)
+            span = self._prompt_spans.pop(pid, None)
+        if span is not None:  # publishes the trace (its last open span)
+            span.set_attribute("error", message)
+            span.end(status="error")
 
     def _finalize(self, pid, entry, outputs, finish) -> None:
         """Run the deferred saves (fetch + encode + write) and publish."""
+        self.resilience.beat()  # publishing is progress too
+        t_fin = time.perf_counter()
         try:
             finish()
         except Exception as e:  # noqa: BLE001 - surfaced through /history
             log.exception("prompt %s failed", pid)
-            self._publish_error(pid, entry, e)
+            self._publish_error(pid, entry, f"{type(e).__name__}: {e}")
             return
+        finalize_s = time.perf_counter() - t_fin
+        self.flight.record("finalize", prompt_id=pid, status="success",
+                           finalize_s=round(finalize_s, 6))
+        self.metrics["tpustack_request_phase_latency_seconds"].labels(
+            server="graph", phase="finalize").observe(finalize_s)
+        self.metrics["tpustack_graph_prompts_total"].labels(status="success").inc()
         with self._lock:  # status_str before completed: pollers read both
             entry.outputs = outputs
             entry.status_str = "success"
             entry.completed = True
             self._running.remove(pid)
+            t_submit = self._t_submit.pop(pid, None)
+            span = self._prompt_spans.pop(pid, None)
+        if span is not None:
+            span.end()
+        if t_submit is not None:  # the Retry-After basis: submit-to-publish time
+            self.resilience.observe_service_time(time.monotonic() - t_submit)
 
     def shutdown(self) -> None:
         """Stop the HTTP server and let the worker publish what it holds."""
         self.stop()
         self._queue.put(None)
         self._worker.join(timeout=600)
+        self.resilience.close()
 
     # ---- handlers: (status, headers, body)
-    def queue_state(self):
+    def queue_state(self, req: Request):
         with self._lock:
             running = [[i, pid] for i, pid in enumerate(self._running)]
             pending = [[0, pid] for pid in self._pending]
-        return _json(200, {"queue_running": running, "queue_pending": pending})
+        return json_reply(200, {"queue_running": running, "queue_pending": pending})
 
-    def object_info(self):
-        return _json(200, self.executor.object_info())
+    def object_info(self, req: Request):
+        return json_reply(200, self.executor.object_info())
 
-    def submit(self, body: bytes):
+    def submit(self, req: Request):
+        rejected = self.metrics["tpustack_graph_prompts_total"].labels(status="rejected")
         try:
-            data = json.loads(body or b"null")
+            data = json.loads(req.body or b"null")
         except (ValueError, UnicodeDecodeError):
-            return _json(400, {"error": "invalid JSON"})
+            rejected.inc()
+            return json_reply(400, {"error": "invalid JSON"})
         if not isinstance(data, dict):
-            return _json(400, {"error": "body must be a JSON object"})
+            rejected.inc()
+            return json_reply(400, {"error": "body must be a JSON object"})
         graph = data.get("prompt")
         try:
             self.executor.check(graph)
+            deadline_s = self.resilience.deadline(data.get("timeout_s"))
         except GraphError as e:
-            return _json(400, {"error": str(e)})
+            rejected.inc()
+            return json_reply(400, {"error": str(e)})
+        except (TypeError, ValueError) as e:
+            rejected.inc()
+            return json_reply(400, {"error": f"bad timeout_s: {e}"})
         pid = str(uuid.uuid4())
+        parent = obs_trace.current_span.get()
         with self._lock:
             self._history[pid] = HistoryEntry(prompt_id=pid,
                                               client_id=str(data.get("client_id", "")))
             self._pending[pid] = graph
+            if parent is not None:
+                # ended at publish, so the client's trace covers the
+                # prompt's whole submit-to-publish life
+                self._prompt_spans[pid] = self.tracer.start_span(
+                    "prompt", parent=parent, attrs={"prompt_id": pid})
+            if deadline_s is not None:
+                self._deadline_at[pid] = time.monotonic() + deadline_s
+            self._t_submit[pid] = time.monotonic()
             number = len(self._history)
         self._queue.put(pid)
-        return _json(200, {"prompt_id": pid, "number": number})
+        self.metrics["tpustack_graph_queue_depth"].set(self._queue.qsize())
+        return json_reply(200, {"prompt_id": pid, "number": number})
 
-    def history(self, pid: str):
+    def history(self, req: Request):
+        pid = req.params["prompt_id"]
         with self._lock:  # serialise under the lock: the worker mutates entries
             entry = self._history.get(pid)
             payload = {} if entry is None else {pid: entry.as_json()}
-        return _json(200, payload)
+        return json_reply(200, payload)
 
-    def view(self, query: Dict[str, List[str]]):
-        filename = (query.get("filename") or [""])[0]
-        subfolder = (query.get("subfolder") or [""])[0]
+    def view(self, req: Request):
+        filename, subfolder = req.arg("filename"), req.arg("subfolder")
         base = os.path.realpath(self.rt.output_dir)
         path = os.path.realpath(os.path.join(base, subfolder, filename))
         # keep /view inside the output dir
         if not path.startswith(base + os.sep) or not os.path.isfile(path):
-            return _json(404, {"error": "not found"})
+            return json_reply(404, {"error": "not found"})
         with open(path, "rb") as f:
             data = f.read()
         ctype = mimetypes.guess_type(path)[0] or "application/octet-stream"
         return 200, {"Content-Type": ctype}, data
 
-    def healthz(self):
+    def healthz(self, req: Request):
+        """Liveness + worker state (503 only on a watchdog-declared hang)."""
         with self._lock:
             running, pending = len(self._running), len(self._pending)
-        return _json(200, {"ok": True, "worker_alive": self._worker.is_alive(),
-                           "running": running, "pending": pending,
-                           "max_batch": self.max_batch, "pixel_budget": self.pixel_budget,
-                           "batch_fallbacks": self.batch_fallbacks})
+        status, payload = self.resilience.health_payload(extra={
+            "worker_alive": self._worker.is_alive(), "running": running, "pending": pending,
+            "max_batch": self.max_batch, "pixel_budget": self.pixel_budget,
+            "batch_fallbacks": self.batch_fallbacks})
+        return json_reply(status, payload, self.resilience.health_headers(status))
+
+    def readyz(self, req: Request):
+        status, payload = self.resilience.ready_payload()
+        return json_reply(status, payload, self.resilience.ready_headers(status))
 
     # ---- http
+    def handler_class(self):
+        """The request handler: routes behind the resilience gate and the
+        HTTP instrumentation."""
+        routes = obs_http.Routes()
+        for path, fn in (("/queue", self.queue_state), ("/object_info", self.object_info),
+                         ("/history/{prompt_id}", self.history), ("/view", self.view),
+                         ("/healthz", self.healthz), ("/readyz", self.readyz)):
+            routes.add_get(path, fn)
+        routes.add_post("/prompt", self.submit)
+        obs_http.add_metrics_route(routes, self._registry)
+        obs_http.add_debug_trace_routes(routes, self.tracer)
+        obs_http.add_debug_flight_routes(routes, self.flight)
+        dispatch = obs_http.instrument("graph", self._registry, self.tracer)(
+            self.resilience.middleware(("/prompt",))(
+                obs_http.route(json_reply(404, {"error": "not found"}))))
+        return obs_http.handler_class(routes, dispatch, max_body=4 << 20)
+
     def start(self, host: str = "0.0.0.0", port: int = 8181) -> int:
         """Serve on a daemon thread; returns the bound port (0 picks one)."""
-        self._httpd = ThreadingHTTPServer((host, port), _handler_for(self))
+        self._httpd = ThreadingHTTPServer((host, port), self.handler_class())
         self._httpd.daemon_threads = True
         self._http_thread = threading.Thread(target=self._httpd.serve_forever,
                                              name="graph-server", daemon=True)
@@ -783,55 +908,13 @@ class GraphServer:
             self._httpd = self._http_thread = None
 
 
-def _json(status: int, payload: dict):
-    return status, {"Content-Type": "application/json"}, json.dumps(payload).encode()
-
-
-def _handler_for(server: GraphServer):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-
-        def _reply(self, status, headers, body):
-            self.send_response(status)
-            for k, v in headers.items():
-                self.send_header(k, v)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def do_GET(self):
-            url = urllib.parse.urlsplit(self.path)
-            if url.path.startswith("/history/"):
-                reply = server.history(urllib.parse.unquote(url.path[len("/history/"):]))
-            elif url.path == "/view":
-                reply = server.view(urllib.parse.parse_qs(url.query))
-            else:
-                fn = {"/queue": server.queue_state, "/object_info": server.object_info,
-                      "/healthz": server.healthz}.get(url.path)
-                reply = fn() if fn else _json(404, {"error": "not found"})
-            self._reply(*reply)
-
-        def do_POST(self):
-            n = int(self.headers.get("Content-Length") or 0)
-            if n > 4 << 20:
-                self._reply(*_json(413, {"error": "body too large"}))
-                return
-            body = self.rfile.read(n)
-            if urllib.parse.urlsplit(self.path).path != "/prompt":
-                self._reply(*_json(404, {"error": "not found"}))
-                return
-            self._reply(*server.submit(body))
-
-        def log_message(self, fmt, *args):  # no access log, as in the JAX server
-            pass
-
-    return Handler
-
-
 def main() -> None:
     _check_text_quant()  # fail fast on an unported or misspelt setting
     server = GraphServer()
     port = server.start(port=int(os.environ.get("PORT", "8181")))
+    # SIGTERM -> drain: /prompt refuses, the worker publishes every accepted
+    # prompt, exit 0
+    server.resilience.install_signal_handlers()
     log.info("Wan graph server on :%d (models=%s, outputs=%s)", port, server.rt.models_dir,
              server.rt.output_dir)
     try:

@@ -3,14 +3,24 @@
 The HTTP surface of ``tpustack/serving/llm_server.py`` (itself llama.cpp's
 server's), served by ``http.server.ThreadingHTTPServer``:
 
-- ``GET /health`` -> ``{"status": "ok"}``; ``GET /healthz`` -> liveness and
-  engine state
+- ``GET /health`` -> ``{"status": "ok"}``; ``GET /healthz`` -> liveness,
+  drain/watchdog state, ``inflight``, ``queue_depth`` and the ``engine``
+  block (503 only when the watchdog fired); ``GET /readyz`` -> readiness
+  (503 + ``X-Shed-Reason: draining`` from the moment a drain begins)
 - ``GET /props`` -> model, ctx, slots, paged pool and prefix-cache stats,
   speculative drafted/accepted, ``decode_kernel``
+- ``GET /metrics`` (Prometheus text), ``GET /debug/traces``,
+  ``GET /debug/traces/{trace_id}``, ``GET /debug/flight``
 - ``POST /completion`` -> ``{content, model, stop, stopped_eos,
-  stopped_limit, tokens_evaluated, tokens_predicted, timings}``
+  stopped_limit, tokens_evaluated, tokens_predicted, timings}``, or with
+  ``"stream": true`` server-sent events of ``{content, stop: false}``
+  deltas and a final event carrying the body's fields and ``timings``
+- ``POST /v1/chat/completions`` -> an OpenAI ``chat.completion``, or with
+  ``"stream": true`` ``chat.completion.chunk`` events then ``[DONE]``
 - ``POST /tokenize`` -> ``{tokens}``; ``POST /detokenize`` -> ``{content}``
-- ``POST /v1/chat/completions`` -> an OpenAI ``chat.completion``
+- ``POST /admin/drain`` -> the reversible readiness drain the fleet's
+  autoscaler calls (``X-Admin-Token`` must equal ``TPUSTACK_ADMIN_TOKEN``;
+  403 when the knob is unset); body ``{"undrain": true}`` reverses it
 
 Every completion goes through the paged continuous engine
 (``models.llm_continuous``): slots hold block tables into one KV pool,
@@ -19,7 +29,15 @@ evicting unreferenced cached blocks, gets 429 with ``Retry-After`` from the
 in-flight requests' projected block release), a prefix-cache hit shares the
 cached blocks, and prompt-lookup speculation is on.  One engine thread runs
 the engine whenever requests are queued; handler threads wait on their
-request.
+request.  Streams ride the same engine: each fetched wave hands a row its
+tokens, and a stream's client that disconnects cancels its row.
+
+The resilience layer (``serving.resilience``) is the JAX server's:
+``TPUSTACK_MAX_QUEUE_DEPTH`` sheds with 429, ``TPUSTACK_REQUEST_TIMEOUT_S``
+and the body's ``timeout_s`` answer 504 naming the phase (the row is
+retired and its blocks freed), SIGTERM drains (in-flight completions
+finish, new work gets 503, the process exits 0), ``TPUSTACK_WATCHDOG_S``
+flips liveness on a hung dispatch, and ``TPUSTACK_FAULT_*`` inject faults.
 
 Env (the JAX server's names): ``LLM_PRESET`` (``qwen25_7b`` | ``llama2_7b``
 | ``tiny``), ``LLM_CTX`` (4096), ``LLM_KV_QUANT`` (``int8``),
@@ -27,36 +45,49 @@ Env (the JAX server's names): ``LLM_PRESET`` (``qwen25_7b`` | ``llama2_7b``
 chunk ``min(LLM_CHUNK, 16)``), ``TPUSTACK_KV_BLOCK``,
 ``TPUSTACK_KV_POOL_BLOCKS``, ``TPUSTACK_PREFIX_CACHE``,
 ``TPUSTACK_SPEC_TOKENS`` (4), ``TPUSTACK_SPEC_NGRAM`` (3),
-``TPUSTACK_PAGED_FLASH`` (``auto``: the paged kernel on CUDA), ``PORT``
-(8080), and ``LLM_DEVICE`` (default the first GPU; ``cpu`` to run on the
-CPU).  Weights are drawn from seed 0, as the JAX server's are without a
-checkpoint.
+``TPUSTACK_PAGED_FLASH`` (``auto``: the paged kernel on CUDA where the
+engine's geometry is inside its contract), ``PORT`` (8080), and
+``LLM_DEVICE`` (default the first GPU; ``cpu`` to run on the CPU).  Weights
+are drawn from seed 0, as the JAX server's are without a checkpoint.
 
-Not ported yet, and refused rather than served some other way: streaming
-(``"stream": true`` -> 400), ``LLM_MAX_BATCH < 2`` (the dense solo engine),
-``TPUSTACK_PAGED_KV=0`` (the dense engine), ``LLM_TP``, ``LLM_QUANT``,
-``MODEL_DIR``, ``LLM_TOKENIZER_DIR`` and ``TPUSTACK_SPEC_DRAFT`` (startup
-errors).
+Not ported yet, and refused rather than served some other way:
+``LLM_MAX_BATCH < 2`` (the dense solo engine), ``TPUSTACK_PAGED_KV=0`` (the
+dense engine), ``LLM_TP``, ``LLM_QUANT``, ``MODEL_DIR``,
+``LLM_TOKENIZER_DIR`` and ``TPUSTACK_SPEC_DRAFT`` (startup errors);
+``POST /profile``, ``/debug/tenants`` and ``/debug/kvcache`` answer 404.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hmac
 import json
 import math
 import os
+import queue
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import List, Optional
 
 import torch
 
-from tpustack_torch.utils import get_logger
+from tpustack_torch.obs import catalog as obs_catalog
+from tpustack_torch.obs import device as obs_device
+from tpustack_torch.obs import flight as obs_flight
+from tpustack_torch.obs import http as obs_http
+from tpustack_torch.obs import trace as obs_trace
+from tpustack_torch.obs.http import Request, json_reply
+from tpustack_torch.serving.resilience import (DeadlineExceeded, InjectedDeviceError,
+                                               ResilienceManager, shed_headers)
+from tpustack_torch.utils import get_logger, knobs
 
 log = get_logger("serving.llm_server")
+
+#: the work endpoints: gated by the resilience layer, traced always
+WORK_ENDPOINTS = ("/completion", "/v1/chat/completions")
 
 
 class OutOfKVBlocks(Exception):
@@ -185,22 +216,72 @@ def build_spec():
     return SpecConfig(tokens=k, ngram_max=max(1, _env_int("TPUSTACK_SPEC_NGRAM", 3)))
 
 
+class IncrementalDetokenizer:
+    """Text deltas of a growing token sequence, never splitting a
+    character: the JAX server's ``next_delta`` (the vLLM/TGI sliding-window
+    recipe).  Each delta decodes a window that keeps 4 tokens of context
+    before the last emitted position, so subword spacing renders as in the
+    full text, and holds back while the window ends in U+FFFD (an
+    incomplete multi-byte character) for up to 16 tokens; past that the
+    bytes are genuinely invalid and are flushed."""
+
+    HOLD_TOKENS = 16
+    CONTEXT_TOKENS = 4
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.ids: List[int] = []
+        self.prefix_off = self.read_off = 0
+
+    def push(self, token: int) -> str:
+        self.ids.append(token)
+        prev = self.tok.decode(self.ids[self.prefix_off:self.read_off])
+        text = self.tok.decode(self.ids[self.prefix_off:])
+        if len(text) <= len(prev):
+            return ""
+        if text.endswith("�"):
+            if len(self.ids) - self.read_off <= self.HOLD_TOKENS:
+                return ""
+            # forced flush: the pending bytes leave the window for good, or
+            # a later token could re-render them and the prefix arithmetic
+            # would drop good characters
+            self.prefix_off = self.read_off = len(self.ids)
+            return text[len(prev):]
+        self.prefix_off = max(self.read_off - self.CONTEXT_TOKENS, 0)
+        self.read_off = len(self.ids)
+        return text[len(prev):]
+
+    def flush(self) -> str:
+        """What is still held back at the end of the stream."""
+        window = self.ids[self.prefix_off:]
+        return self.tok.decode(window)[len(self.tok.decode(self.ids[self.prefix_off:
+                                                                    self.read_off])):]
+
+
 class _Pending:
-    """A completion waiting for (or decoding in) the engine."""
+    """A completion waiting for (or decoding in) the engine.  ``stream``:
+    a queue of the row's tokens (None at the end) for a streamed request."""
 
     __slots__ = ("ids", "n_predict", "sample", "seed", "prefix", "kv_blocks",
-                 "on_prefill_blocks", "speculative", "phase", "done", "result", "error")
+                 "on_prefill_blocks", "speculative", "phase", "done", "result", "error",
+                 "cancel", "stream", "span_ctx", "queue_span")
 
     def __init__(self, ids, n_predict, sample, seed, prefix, kv_blocks, on_prefill_blocks,
-                 speculative):
+                 speculative, stream=None):
         self.ids, self.n_predict, self.sample, self.seed = ids, n_predict, sample, seed
         self.prefix, self.kv_blocks = prefix, kv_blocks
         self.on_prefill_blocks = on_prefill_blocks
         self.speculative = speculative
-        self.phase = "queued"  # the server owns the pool references until "decode"
+        # the server owns the pool references until "decode", the phase a
+        # 504 names once feed() hands the request to a slot
+        self.phase = "queued"
         self.done = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        self.cancel = threading.Event()  # a deadline or a gone client: retire the row
+        self.stream: Optional[queue.Queue] = stream
+        self.span_ctx = None
+        self.queue_span = None
 
 
 class LLMServer:
@@ -209,7 +290,14 @@ class LLMServer:
     _FROM_ENV = object()
 
     def __init__(self, generator=None, tokenizer=None, model_name: str = "tpustack_torch",
-                 max_batch: Optional[int] = None, paged=_FROM_ENV, spec=_FROM_ENV):
+                 max_batch: Optional[int] = None, paged=_FROM_ENV, spec=_FROM_ENV,
+                 registry=None, tracer=None):
+        # metrics registry and tracer: tests pass fresh ones for isolation;
+        # the defaults are the process-wide ones /metrics and /debug/traces serve
+        self._registry = registry
+        self.metrics = obs_catalog.build(registry)
+        obs_device.install(registry)
+        self.tracer = tracer if tracer is not None else obs_trace.TRACER
         if generator is None:
             generator, tokenizer, model_name = _build_generator()
         self.gen, self.tok, self.model_name = generator, tokenizer, model_name
@@ -218,14 +306,18 @@ class LLMServer:
             raise _not_ported(f"LLM_MAX_BATCH={self.max_batch} (the dense solo engine)")
         if not _env_bool("TPUSTACK_PAGED_KV", True):
             raise _not_ported("TPUSTACK_PAGED_KV=0 (the dense per-slot engine)")
+        self.spec_cfg = build_spec() if spec is LLMServer._FROM_ENV else spec
         self.paged = build_paged(self.gen, self.max_batch) if paged is LLMServer._FROM_ENV \
             else paged
         if self.paged is None:
             raise _not_ported("serving without a paged KV pool (the dense engine)")
-        self.spec_cfg = build_spec() if spec is LLMServer._FROM_ENV else spec
         from tpustack_torch.models.llm_generate import resolve_paged_flash
 
-        self.paged_flash = resolve_paged_flash(self.gen.device)
+        # resolved once at boot, on the engine's geometry: =1 outside the
+        # kernel's contract fails here, not on the first decode step
+        self.paged_flash = resolve_paged_flash(
+            self.gen.device, self.gen.cfg, self.gen.cache_dtype, self.paged.block,
+            self.spec_cfg.tokens if self.spec_cfg is not None else 0, self.max_batch)
         chunk = max(1, _env_int("LLM_CHUNK", 32))
         override = _env_int("LLM_ENGINE_CHUNK", 0)
         self.engine_chunk = override if override > 0 else min(chunk, 16)
@@ -236,20 +328,49 @@ class LLMServer:
         self._spec_drafted = self._spec_accepted = 0
         #: stats of every finished engine run, newest last
         self.run_log: collections.deque = collections.deque(maxlen=256)
+        # drain on SIGTERM, deadlines, 429 backpressure, the watchdog and
+        # the TPUSTACK_FAULT_* hooks; queue depth is what waits for a slot
+        self.resilience = ResilienceManager("llm", registry, concurrency=self.max_batch,
+                                            queue_depth=lambda: len(self._queue),
+                                            expected_service_s=2.0)
+        self.flight = obs_flight.register(obs_flight.FlightRecorder("llm", meta={
+            "model": model_name, "slots": self.max_batch, "chunk": self.engine_chunk,
+            "paged_kv": True, "decode_kernel": self.decode_kernel,
+            "spec_tokens": self.spec_cfg.tokens if self.spec_cfg is not None else 0}))
+        self._paged_gauges()
+        log.info("decode attention: %s (KV block %d, %d slots, speculation %d, %s)",
+                 self.decode_kernel, self.paged.block, self.max_batch,
+                 self.spec_cfg.tokens if self.spec_cfg is not None else 0,
+                 self.gen.cache_dtype)
         self._engine_thread = threading.Thread(target=self._engine_loop, name="llm-engine",
                                                daemon=True)
         self._engine_thread.start()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
+    @property
+    def decode_kernel(self) -> str:
+        return "paged_flash" if self.paged_flash else "gather"
+
     # ------------------------------------------------------------ engine
     def _note_spec(self, drafted: int, accepted: int) -> None:
         self._spec_drafted += drafted
         self._spec_accepted += accepted
+        self.metrics["tpustack_llm_spec_drafted_tokens_total"].inc(drafted)
+        self.metrics["tpustack_llm_spec_accepted_tokens_total"].inc(accepted)
+        self.metrics["tpustack_llm_spec_acceptance_ratio"].set(
+            self._spec_accepted / self._spec_drafted if self._spec_drafted else 0.0)
+
+    def _paged_gauges(self) -> None:
+        p = self.paged.pool
+        self.metrics["tpustack_llm_kv_free_blocks"].set(p.n_free)
+        self.metrics["tpustack_llm_kv_used_blocks"].set(p.n_used)
+        self.metrics["tpustack_llm_kv_block_fragmentation_ratio"].set(p.fragmentation())
 
     def _release(self, r: _Pending) -> None:
-        """Give back a queued request's pool references after a failed run
-        (the engine owns them once the request is handed to a slot)."""
+        """Give back a queued request's pool references (it died queued, or
+        its run failed before a slot took it; the engine owns them once the
+        request is handed to a slot)."""
         if r.phase != "queued":
             return
         ids = list(r.kv_blocks or [])
@@ -258,21 +379,46 @@ class LLMServer:
         r.kv_blocks, r.prefix = None, None
         if ids:
             self.paged.pool.decref(ids)
+            self._paged_gauges()
 
     def _slot_request(self, r: _Pending):
         from tpustack_torch.models.llm_continuous import SlotRequest
 
+        eos = self.tok.eos_id
+
+        def on_tokens(toks):
+            for t in toks:  # the engine already enforced budget and stop
+                if t != eos:
+                    r.stream.put(t)
+
         def on_done(tokens, stats):
+            self.metrics["tpustack_llm_running_requests"].dec()
+            self._paged_gauges()  # the engine freed the row's blocks first
             if tokens is None:
+                self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                    reason="admission").inc()
                 r.error = BadRequest(stats.get("error", "bad request"))
             else:
                 r.result = (tokens, stats)
             r.done.set()
+            if r.stream is not None:
+                r.stream.put(None)  # end of stream
 
-        return SlotRequest(ids=r.ids, max_new=r.n_predict, sample=r.sample, on_done=on_done,
-                           seed=r.seed, prefix=r.prefix,
-                           kv_blocks=r.kv_blocks, on_prefill_blocks=r.on_prefill_blocks,
-                           speculative=r.speculative)
+        return SlotRequest(ids=r.ids, max_new=r.n_predict, sample=r.sample,
+                           on_tokens=on_tokens if r.stream is not None else None,
+                           on_done=on_done, cancelled=r.cancel.is_set, seed=r.seed,
+                           prefix=r.prefix, span_ctx=r.span_ctx, kv_blocks=r.kv_blocks,
+                           on_prefill_blocks=r.on_prefill_blocks, speculative=r.speculative)
+
+    def _fail(self, r: _Pending, exc: BaseException) -> None:
+        if r.queue_span is not None:
+            r.queue_span.end(status="error")  # idempotent
+        self._release(r)
+        if not r.done.is_set():
+            r.error = exc
+            r.done.set()
+        if r.stream is not None:
+            r.stream.put(None)
 
     def _engine_loop(self) -> None:
         """Run the engine for every busy period; a run returns when its
@@ -287,21 +433,39 @@ class LLMServer:
             handed: List[_Pending] = []
 
             def feed():
-                if not self._queue:
-                    return None
-                r = self._queue.popleft()
-                r.phase = "decode"
-                handed.append(r)
-                return self._slot_request(r)
+                while self._queue:
+                    r = self._queue.popleft()
+                    self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
+                    if r.cancel.is_set():  # died queued: its waiter is gone
+                        if r.queue_span is not None:
+                            r.queue_span.set_attribute("cancelled", True)
+                            r.queue_span.end(status="error")
+                        self._release(r)
+                        if r.stream is not None:
+                            r.stream.put(None)
+                        continue
+                    r.phase = "decode"
+                    if r.queue_span is not None:
+                        r.queue_span.end()
+                    handed.append(r)
+                    self.metrics["tpustack_llm_running_requests"].inc()
+                    return self._slot_request(r)
+                return None
 
             engine = ContinuousEngine(self.gen, self.paged, slots=self.max_batch,
                                       chunk=self.engine_chunk, stop_tokens=(self.tok.eos_id,),
                                       paged_flash=self.paged_flash, spec=self.spec_cfg,
-                                      on_spec=self._note_spec)
+                                      on_spec=self._note_spec,
+                                      on_progress=self.resilience.progress,
+                                      tracer=self.tracer, flight=self.flight,
+                                      queue_depth=lambda: len(self._queue))
             self._engine = engine
             try:
                 stats = engine.run(feed)
                 self.run_log.append(stats)
+                if stats["requests"]:
+                    self.metrics["tpustack_llm_batch_occupancy_slots"].observe(
+                        stats["requests"])
                 log.info("engine run: %d requests, %d tokens, %.1f tok/s aggregate",
                          stats["requests"], stats["generated_tokens"], stats["tokens_per_s"])
             except Exception as e:  # fail every waiter; the server stays up
@@ -309,20 +473,28 @@ class LLMServer:
                 while self._queue:
                     handed.append(self._queue.popleft())
                 for r in handed:
-                    self._release(r)
-                    if not r.done.is_set():
-                        r.error = e
-                        r.done.set()
+                    self._fail(r, e)
             finally:
                 self._engine = None
+                # nothing decodes between runs: self-heal the gauges even
+                # when a run died before on_done fired for some rows
+                self.metrics["tpustack_llm_running_requests"].set(0)
+                self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
+                self._paged_gauges()
                 if self._queue:
                     self._wake.set()
 
     # ----------------------------------------------------- paged admission
     def _retry_after(self, shortfall_blocks: int) -> int:
+        """Seconds until the live rows' projected block releases cover the
+        shortfall, clamped to [1, 120]; the resilience layer's p50 estimate
+        when no engine run is live to project from."""
         eng = self._engine
-        est = eng.projected_block_release_s(shortfall_blocks) if eng is not None else 1.0
-        return min(max(1, math.ceil(est)), 120)
+        if eng is None:
+            return self.resilience.retry_after_s()
+        ra = min(max(1, math.ceil(eng.projected_block_release_s(shortfall_blocks))), 120)
+        self.metrics["tpustack_retry_after_seconds"].labels(server="llm").set(ra)
+        return ra
 
     def _paged_admit(self, ids, n_predict: int, cache_prompt: bool):
         """Admission is allocation: a prefix hit increfs the shared blocks,
@@ -335,6 +507,13 @@ class LLMServer:
         prefix = None
         if rt.cache is not None and cache_prompt:
             m = rt.cache.match(ids)
+            self.metrics["tpustack_llm_prefix_cache_lookups_total"].labels(
+                result="hit" if m.length else "miss").inc()
+            self.metrics["tpustack_llm_prefix_cached_tokens"].observe(m.length)
+            span = obs_trace.current_span.get()
+            if span is not None:
+                span.add_event("prefix_cache", result="hit" if m.length else "miss",
+                               cached_tokens=m.length)
             if m.length:
                 prefix = (m.length, m.block_ids)
         n_shared = len(prefix[1]) if prefix else 0
@@ -351,6 +530,8 @@ class LLMServer:
         except OutOfBlocks:
             if prefix:
                 rt.pool.decref(prefix[1])
+            self.metrics["tpustack_requests_shed_total"].labels(
+                server="llm", reason="out_of_kv_blocks").inc()
             raise OutOfKVBlocks(self._retry_after(need_fresh - rt.pool.n_free)) from None
         on_insert = None
         if rt.cache is not None and cache_prompt and len(ids) // rt.block > n_shared:
@@ -358,37 +539,87 @@ class LLMServer:
 
             def on_insert(bids):
                 rt.cache.insert(ids_copy, bids)
+        self._paged_gauges()
         return prefix, kv_blocks, on_insert
 
-    def complete(self, prompt: str, n_predict: int = 128, temperature: float = 0.8,
-                 top_k: int = 40, seed=None, cache_prompt: bool = True,
-                 speculative: bool = True):
-        """``(content, stats, stopped_eos)`` for one prompt, through the
-        engine.  Raises :class:`BadRequest` or :class:`OutOfKVBlocks`."""
+    def _admit(self, prompt: str, n_predict: int, temperature: float, top_k: int, seed,
+               cache_prompt: bool, speculative: bool, stream: bool = False) -> _Pending:
+        """Tokenise, check and allocate one request (not queued yet).
+        Raises :class:`BadRequest` or :class:`OutOfKVBlocks`."""
         from tpustack_torch.models.llm_generate import SampleConfig
 
         ids = self.tok.encode(prompt)
         if not ids:
+            self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                reason="empty_prompt").inc()
             raise BadRequest("empty prompt")
         if len(ids) >= self.gen.cfg.max_seq:
             raise BadRequest(f"prompt ({len(ids)} tokens) exceeds ctx {self.gen.cfg.max_seq}")
         prefix, kv_blocks, on_insert = self._paged_admit(ids, n_predict, cache_prompt)
-        r = _Pending(ids, n_predict, SampleConfig(temperature=temperature, top_k=top_k,
-                                                  greedy=temperature <= 0),
-                     seed, prefix, kv_blocks, on_insert, speculative)
+        return _Pending(ids, n_predict, SampleConfig(temperature=temperature, top_k=top_k,
+                                                     greedy=temperature <= 0),
+                        seed, prefix, kv_blocks, on_insert, speculative,
+                        stream=queue.Queue() if stream else None)
+
+    def _enqueue(self, r: _Pending) -> None:
+        # engine threads do not see the handler's contextvars: the root
+        # span's context rides on the request
+        span = obs_trace.current_span.get()
+        if span is not None:
+            r.span_ctx = span.context
+            r.queue_span = self.tracer.start_span("queue_wait", parent=span)
         self._queue.append(r)
+        self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
         self._wake.set()
-        r.done.wait()
+
+    def complete(self, prompt: str, n_predict: int = 128, temperature: float = 0.8,
+                 top_k: int = 40, seed=None, cache_prompt: bool = True,
+                 speculative: bool = True, deadline_s: Optional[float] = None):
+        """``(content, stats, stopped_eos)`` for one prompt, through the
+        engine.  Raises :class:`BadRequest`, :class:`OutOfKVBlocks`, or
+        :class:`DeadlineExceeded` past ``deadline_s`` (the row is cancelled:
+        dropped if still queued, retired at the engine's next chunk boundary
+        otherwise, and its blocks freed either way)."""
+        t0 = time.perf_counter()
+        r = self._admit(prompt, n_predict, temperature, top_k, seed, cache_prompt, speculative)
+        self._enqueue(r)
+        if not r.done.wait(deadline_s):
+            r.cancel.set()
+            raise DeadlineExceeded(r.phase)
         if r.error is not None:
             raise r.error
         out_ids, stats = r.result
         stopped_eos = bool(out_ids) and out_ids[-1] == self.tok.eos_id
         if stopped_eos:
             out_ids = out_ids[:-1]
-        return self.tok.decode(out_ids), stats, stopped_eos
+        stats = dict(stats)
+        t_detok = time.perf_counter()
+        with self.tracer.span_if_active("detokenize"):
+            content = self.tok.decode(out_ids)
+        stats["detokenize_s"] = time.perf_counter() - t_detok
+        self._observe_done(len(r.ids), stats, time.perf_counter() - t0)
+        return content, stats, stopped_eos
+
+    def _observe_done(self, n_prompt: int, stats: dict, total_s: float) -> None:
+        """Token counters, the prompt-length histogram and the phase
+        breakdown of one finished completion (queue_wait is the wall time
+        the engine's phases do not account for)."""
+        m = self.metrics
+        m["tpustack_llm_prompt_tokens_total"].inc(stats.get("prompt_tokens", 0))
+        m["tpustack_llm_generated_tokens_total"].inc(stats.get("generated_tokens", 0))
+        m["tpustack_llm_prompt_length_tokens"].observe(n_prompt)
+        prefill, decode = stats.get("prefill_s", 0.0), stats.get("decode_s", 0.0)
+        detok = stats.get("detokenize_s", 0.0)
+        tr = obs_trace.Trace()
+        tr.add("queue_wait", max(0.0, total_s - prefill - decode - detok))
+        tr.add("prefill", prefill)
+        tr.add("decode", decode)
+        tr.add("detokenize", detok)
+        tr.observe_into(m["tpustack_request_phase_latency_seconds"], server="llm")
 
     def _final_payload(self, stats, stopped_eos: bool, content: str) -> dict:
-        """The llama.cpp-shaped result body."""
+        """The llama.cpp-shaped result body, shared by the non-streamed
+        response and the stream's final event."""
         return {
             "content": content,
             "model": self.model_name,
@@ -407,21 +638,55 @@ class LLMServer:
         }
 
     # ------------------------------------------------------------ handlers
-    def health(self, body=None):
-        return _json(200, {"status": "ok"})
+    def health(self, req: Request):
+        return json_reply(200, {"status": "ok"})
 
-    def healthz(self, body=None):
-        return _json(200, {"ok": True, "engine": {
+    def healthz(self, req: Request):
+        """Liveness + engine state: 503 only when the watchdog declared a
+        hung dispatch.  Draining pods stay live: they are finishing
+        in-flight work on purpose."""
+        status, payload = self.resilience.health_payload(extra={"engine": {
             "model": self.model_name, "slots": self.max_batch, "chunk": self.engine_chunk,
             "queue_depth": len(self._queue), "running": self._engine is not None,
             "prefix_cache": self.paged.cache is not None, "paged_kv": True,
-            "device": str(self.gen.device)}})
+            "decode_kernel": self.decode_kernel, "device": str(self.gen.device)}})
+        return json_reply(status, payload, self.resilience.health_headers(status))
 
-    def props(self, body=None):
+    def readyz(self, req: Request):
+        status, payload = self.resilience.ready_payload()
+        return json_reply(status, payload, self.resilience.ready_headers(status))
+
+    def admin_drain(self, req: Request):
+        """Authenticated reversible drain (``POST /admin/drain``): readiness
+        flips 503 with ``X-Shed-Reason: draining`` and admission sheds, while
+        in-flight work finishes and the process stays up; ``{"undrain":
+        true}`` reverses it.  ``X-Admin-Token`` must equal
+        ``TPUSTACK_ADMIN_TOKEN``; an unset knob disables the surface (403)."""
+        expected = knobs.get_str("TPUSTACK_ADMIN_TOKEN")
+        presented = req.headers.get("X-Admin-Token", "")
+        if not expected or not hmac.compare_digest(presented, expected):
+            self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                reason="admin_forbidden").inc()
+            return json_reply(403, {"error": "forbidden", "detail": "missing or bad "
+                                    "X-Admin-Token (or TPUSTACK_ADMIN_TOKEN unset)"})
+        try:
+            body = req.json()
+        except ValueError:
+            body = {}  # an empty or unparseable body is a plain drain request
+        undrain = bool(isinstance(body, dict) and body.get("undrain"))
+        changed = (self.resilience.admin_undrain() if undrain
+                   else self.resilience.admin_drain())
+        status, _ = self.resilience.ready_payload()
+        return json_reply(200, {"ok": True, "action": "undrain" if undrain else "drain",
+                                "changed": changed, "draining": self.resilience.draining,
+                                "state": self.resilience.state_name, "readyz_status": status,
+                                "inflight": self.resilience.inflight})
+
+    def props(self, req: Request):
         rt = self.paged
-        kernel = "paged_flash" if self.paged_flash else "gather"
+        kernel = self.decode_kernel
         sc = self.spec_cfg
-        return _json(200, {
+        return json_reply(200, {
             "model": self.model_name,
             "n_ctx": self.gen.cfg.max_seq,
             "backend": f"torch/{self.gen.device.type}",
@@ -441,9 +706,6 @@ class LLMServer:
         })
 
     def _params(self, body, n_key: str):
-        if body.get("stream"):
-            raise BadRequest('"stream": true is not supported by the PyTorch port yet '
-                             "(later work); send it without streaming")
         n_predict = int(_or_default(body.get(n_key), 128))
         if n_predict < 0:  # llama.cpp: -1 means until EOS / the context limit
             n_predict = self.gen.cfg.max_seq
@@ -453,60 +715,92 @@ class LLMServer:
                     cache_prompt=bool(_or_default(body.get("cache_prompt"), True)),
                     speculative=bool(_or_default(body.get("speculative"), True)))
 
-    def _run_completion(self, prompt, params, top_k, error_body):
+    def _run_completion(self, prompt, params, top_k, deadline_s, error_body):
+        """``(result, None)`` or ``(None, error reply)``."""
         try:
-            return self.complete(prompt, top_k=top_k, **params), None
+            return self.complete(prompt, top_k=top_k, deadline_s=deadline_s, **params), None
         except OutOfKVBlocks as e:
-            return None, (429, {"Content-Type": "application/json",
-                                "X-Shed-Reason": "out_of_kv_blocks",
-                                "Retry-After": str(e.retry_after_s)},
-                          json.dumps(error_body(str(e))).encode())
+            return None, json_reply(429, error_body(str(e)),
+                                    shed_headers("out_of_kv_blocks", e.retry_after_s))
         except BadRequest as e:
-            return None, _json(400, error_body(str(e)))
+            return None, json_reply(400, error_body(str(e)))
+        except DeadlineExceeded as e:
+            self.resilience.note_deadline(e.phase)
+            return None, json_reply(504, dict(error_body(str(e)), phase=e.phase),
+                                    shed_headers("deadline"))
+        except InjectedDeviceError as e:
+            return None, self.resilience.transient_error_response(e)
 
-    def completion(self, body):
+    def _parse(self, req: Request, n_key: str, error_body):
+        """``(body, params, deadline_s, None)`` or an error reply last."""
+        try:
+            body = req.json()
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, UnicodeDecodeError):
+            self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                reason="invalid_json").inc()
+            return None, None, None, json_reply(400, error_body("invalid json"))
+        try:
+            params = self._params(body, n_key)
+            deadline_s = self.resilience.deadline(body.get("timeout_s"))
+        except (TypeError, ValueError) as e:
+            self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                reason="bad_parameter").inc()
+            return None, None, None, json_reply(400, error_body(f"invalid parameter: {e}"))
+        return body, params, deadline_s, None
+
+    def completion(self, req: Request):
+        error_body = lambda m: {"error": m}  # noqa: E731
+        body, params, deadline_s, err = self._parse(req, "n_predict", error_body)
+        if err is not None:
+            return err
         prompt = body.get("prompt", "")
         if not isinstance(prompt, str) or not prompt:
-            return _json(400, {"error": "prompt is required"})
+            self.metrics["tpustack_llm_requests_rejected_total"].labels(
+                reason="empty_prompt").inc()
+            return json_reply(400, {"error": "prompt is required"})
         try:
-            params = self._params(body, "n_predict")
             top_k = int(_or_default(body.get("top_k"), 40))
         except (TypeError, ValueError) as e:
-            return _json(400, {"error": f"invalid parameter: {e}"})
+            return json_reply(400, {"error": f"invalid parameter: {e}"})
+        if body.get("stream"):
+            return self._stream(req, prompt, params, top_k, deadline_s, "llamacpp")
         t0 = time.time()
-        res, err = self._run_completion(prompt, params, top_k, lambda m: {"error": m})
+        res, err = self._run_completion(prompt, params, top_k, deadline_s, error_body)
         if err is not None:
             return err
         content, stats, stopped_eos = res
         log.info("completion: %d prompt tok, %d gen tok, %.2fs", stats["prompt_tokens"],
                  stats["generated_tokens"], time.time() - t0)
-        return _json(200, self._final_payload(stats, stopped_eos, content))
+        return json_reply(200, self._final_payload(stats, stopped_eos, content))
 
-    def tokenize(self, body):
-        return _json(200, {"tokens": self.tok.encode(str(body.get("content", "")),
-                                                     add_bos=False)})
+    def tokenize(self, req: Request):
+        body = req.json()
+        return json_reply(200, {"tokens": self.tok.encode(str(body.get("content", "")),
+                                                          add_bos=False)})
 
-    def detokenize(self, body):
-        return _json(200, {"content": self.tok.decode(body.get("tokens", []))})
+    def detokenize(self, req: Request):
+        return json_reply(200, {"content": self.tok.decode(req.json().get("tokens", []))})
 
-    def chat_completions(self, body):
+    def chat_completions(self, req: Request):
+        error_body = lambda m: {"error": {"message": m}}  # noqa: E731
+        body, params, deadline_s, err = self._parse(req, "max_tokens", error_body)
+        if err is not None:
+            return err
         messages = body.get("messages", [])
         if not messages:
-            return _json(400, {"error": {"message": "messages required"}})
+            return json_reply(400, error_body("messages required"))
         # the JAX server's generic template (no model-specific tokens)
         prompt = "\n".join(f"{m.get('role', 'user')}: {m.get('content', '')}"
                            for m in messages) + "\nassistant:"
-        try:
-            params = self._params(body, "max_tokens")
-        except BadRequest as e:
-            return _json(400, {"error": {"message": str(e)}})
-        except (TypeError, ValueError) as e:
-            return _json(400, {"error": {"message": f"invalid parameter: {e}"}})
-        res, err = self._run_completion(prompt, params, 40, lambda m: {"error": {"message": m}})
+        if body.get("stream"):
+            return self._stream(req, prompt, params, 40, deadline_s, "openai")
+        res, err = self._run_completion(prompt, params, 40, deadline_s, error_body)
         if err is not None:
             return err
         content, stats, stopped_eos = res
-        return _json(200, {
+        return json_reply(200, {
             "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
             "object": "chat.completion",
             "created": int(time.time()),
@@ -518,10 +812,123 @@ class LLMServer:
                       "total_tokens": stats["prompt_tokens"] + stats["generated_tokens"]},
         })
 
+    def _stream(self, req: Request, prompt: str, params: dict, top_k: int,
+                deadline_s: Optional[float], fmt: str):
+        """Server-sent events for ``/completion`` (llama.cpp chunks, a final
+        event with the body's fields) and ``/v1/chat/completions`` (OpenAI
+        ``chat.completion.chunk`` events, then ``[DONE]``).
+
+        Paged admission runs before the SSE head goes out, so a 429 or 400
+        is still a JSON reply with its status.  The row's tokens arrive once
+        per engine wave; each becomes a text delta
+        (:class:`IncrementalDetokenizer`).  A write that fails (the client
+        went away) or blocks past the socket timeout cancels the row, which
+        the engine retires at its next chunk boundary, freeing its blocks.
+        Past the deadline the stream ends with an error event (the status
+        already went out as 200)."""
+        openai = fmt == "openai"
+        error_body = (lambda m: {"error": {"message": m}}) if openai else (lambda m: {"error": m})
+        t0 = time.perf_counter()
+        try:
+            r = self._admit(prompt, params["n_predict"], params["temperature"], top_k,
+                            params["seed"], params["cache_prompt"], params["speculative"],
+                            stream=True)
+        except OutOfKVBlocks as e:
+            return json_reply(429, error_body(str(e)),
+                              shed_headers("out_of_kv_blocks", e.retry_after_s))
+        except BadRequest as e:
+            return json_reply(400, error_body(str(e)))
+        try:
+            req.start_stream(200, {"Content-Type": "text/event-stream",
+                                   "Cache-Control": "no-cache"})
+        except BaseException:
+            self._release(r)  # never queued: nothing else would free its blocks
+            raise
+        self._enqueue(r)
+        chat_id, created = f"chatcmpl-{uuid.uuid4().hex[:12]}", int(time.time())
+
+        def chat_chunk(delta, finish=None):
+            return {"id": chat_id, "object": "chat.completion.chunk", "created": created,
+                    "model": self.model_name,
+                    "choices": [{"index": 0, "delta": delta, "finish_reason": finish}]}
+
+        def send(payload) -> None:
+            req.write(b"data: " + json.dumps(payload).encode() + b"\n\n")
+
+        def send_text(text: str) -> None:
+            send(chat_chunk({"content": text}) if openai else {"content": text, "stop": False})
+
+        def send_error(msg: str) -> None:
+            send(dict(chat_chunk({}, finish="error"), error={"message": msg}) if openai
+                 else {"content": "", "stop": True, "error": msg})
+
+        detok = IncrementalDetokenizer(self.tok)
+        t_end = None if deadline_s is None else time.monotonic() + deadline_s
+        try:
+            if openai:
+                send(chat_chunk({"role": "assistant", "content": ""}))
+            while True:
+                try:
+                    tok = r.stream.get(timeout=None if t_end is None
+                                       else max(t_end - time.monotonic(), 0.001))
+                except queue.Empty:
+                    raise DeadlineExceeded(r.phase) from None
+                if tok is None:
+                    break
+                delta = detok.push(tok)
+                if delta:
+                    send_text(delta)
+            if r.error is not None:  # the stream already started: a final error event
+                send_error(str(r.error))
+                return None
+            tail = detok.flush()
+            if tail:
+                send_text(tail)
+            out_ids, stats = r.result
+            stopped_eos = bool(out_ids) and out_ids[-1] == self.tok.eos_id
+            self._observe_done(len(r.ids), stats, time.perf_counter() - t0)
+            if openai:
+                send(chat_chunk({}, finish="stop" if stopped_eos else "length"))
+                req.write(b"data: [DONE]\n\n")
+            else:
+                send(self._final_payload(stats, stopped_eos, content=""))
+            log.info("stream %s: %d prompt tok, %d gen tok, %.2fs", fmt,
+                     stats["prompt_tokens"], stats["generated_tokens"],
+                     time.perf_counter() - t0)
+        except DeadlineExceeded as e:
+            r.cancel.set()
+            self.resilience.note_deadline(e.phase)
+            send_error(str(e))
+        except OSError:
+            # the client is gone or stopped reading: retire its row
+            r.cancel.set()
+            log.info("stream %s: client gone, row cancelled", fmt)
+        return None
+
     # ---------------------------------------------------------------- http
+    def handler_class(self):
+        """The request handler: routes behind the resilience gate and the
+        HTTP instrumentation."""
+        routes = obs_http.Routes()
+        for path, fn in (("/health", self.health), ("/healthz", self.healthz),
+                         ("/readyz", self.readyz), ("/props", self.props)):
+            routes.add_get(path, fn)
+        for path, fn in (("/completion", self.completion), ("/tokenize", self.tokenize),
+                         ("/detokenize", self.detokenize),
+                         ("/v1/chat/completions", self.chat_completions),
+                         ("/admin/drain", self.admin_drain)):
+            routes.add_post(path, fn)
+        obs_http.add_metrics_route(routes, self._registry)
+        obs_http.add_debug_trace_routes(routes, self.tracer)
+        obs_http.add_debug_flight_routes(routes, self.flight)
+        dispatch = obs_http.instrument("llm", self._registry, self.tracer)(
+            self.resilience.middleware(WORK_ENDPOINTS)(
+                obs_http.route(json_reply(404, {"error": "not found"}))))
+        return obs_http.handler_class(routes, dispatch)
+
     def start(self, host: str = "0.0.0.0", port: int = 8080) -> int:
         """Serve on a daemon thread; returns the bound port (0 picks one)."""
-        self._httpd = ThreadingHTTPServer((host, port), _handler_for(self))
+        self._httpd = ThreadingHTTPServer((host, port), self.handler_class())
         self._httpd.daemon_threads = True
         self._thread = threading.Thread(target=self._httpd.serve_forever, name="llm-server",
                                         daemon=True)
@@ -537,69 +944,16 @@ class LLMServer:
         self._stop = True
         self._wake.set()
         self._engine_thread.join(timeout=60)
-
-
-def _json(status: int, payload: dict):
-    return status, {"Content-Type": "application/json"}, json.dumps(payload).encode()
-
-
-def _handler_for(server: LLMServer):
-    gets = {"/health": server.health, "/healthz": server.healthz, "/props": server.props}
-    posts = {"/completion": server.completion, "/tokenize": server.tokenize,
-             "/detokenize": server.detokenize,
-             "/v1/chat/completions": server.chat_completions}
-
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-
-        def _reply(self, status, headers, body):
-            self.send_response(status)
-            for k, v in headers.items():
-                self.send_header(k, v)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def do_GET(self):
-            fn = gets.get(self.path.split("?", 1)[0])
-            self._reply(*(fn() if fn else _json(404, {"error": "not found"})))
-
-        def do_POST(self):
-            n = int(self.headers.get("Content-Length") or 0)
-            if n > 16 << 20:
-                self._reply(*_json(413, {"error": "body too large"}))
-                return
-            raw = self.rfile.read(n)
-            fn = posts.get(self.path.split("?", 1)[0])
-            if fn is None:
-                self._reply(*_json(404, {"error": "not found"}))
-                return
-            try:
-                body = json.loads(raw or b"{}")
-                if not isinstance(body, dict):
-                    raise ValueError("body must be a JSON object")
-            except (ValueError, UnicodeDecodeError):
-                self._reply(*_json(400, {"error": "invalid json"}))
-                return
-            try:
-                reply = fn(body)
-            except Exception as e:
-                log.exception("%s failed", self.path)
-                reply = _json(500, {"error": f"{type(e).__name__}: {e}"})
-            self._reply(*reply)
-
-        def log_message(self, fmt, *args):  # access log off, as in the JAX server
-            pass
-
-    return Handler
+        self.resilience.close()
 
 
 def main() -> None:
     server = LLMServer()
     port = server.start(port=_env_int("PORT", 8080))
+    # SIGTERM -> drain: readiness 503, in-flight completions finish, exit 0
+    server.resilience.install_signal_handlers()
     log.info("LLM server on port %d (model %s, device %s, %d slots, decode kernel %s)", port,
-             server.model_name, server.gen.device, server.max_batch,
-             "paged_flash" if server.paged_flash else "gather")
+             server.model_name, server.gen.device, server.max_batch, server.decode_kernel)
     try:
         server._thread.join()
     except KeyboardInterrupt:

@@ -1,7 +1,9 @@
 """Logging and device resolution for the port.
 
-``get_logger`` writes plain text lines to stdout under ``tpustack_torch.*``;
-``TPUSTACK_LOG_LEVEL`` picks the level (default INFO), as in the JAX package.
+``get_logger`` writes plain text lines to stdout under ``tpustack_torch.*``,
+each carrying the current request id (``rid=<12 hex>``, ``-`` outside a
+request; :mod:`tpustack_torch.obs.trace`); ``TPUSTACK_LOG_LEVEL`` picks the
+level (default INFO), as in the JAX package.
 
 ``resolve_device`` is how every entry point picks its device: CUDA unless
 the caller asks for the CPU, and an error when there is no GPU and no such
@@ -17,8 +19,18 @@ from typing import Optional, Union
 
 import torch
 
-_FORMAT = "%(asctime)s %(levelname)s [%(name)s] %(message)s"
+_FORMAT = "%(asctime)s %(levelname)s [%(name)s] [rid=%(request_id)s] %(message)s"
 _configured = False
+
+
+class _RequestIdFilter(logging.Filter):
+    """Stamp the context's request id on every record."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        from tpustack_torch.obs.trace import current_request_id
+
+        record.request_id = current_request_id.get()
+        return True
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -27,6 +39,7 @@ def get_logger(name: str) -> logging.Logger:
     if not _configured:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter(_FORMAT))
+        handler.addFilter(_RequestIdFilter())
         root.addHandler(handler)
         root.setLevel(os.environ.get("TPUSTACK_LOG_LEVEL", "INFO").upper())
         root.propagate = False
