@@ -88,8 +88,10 @@ maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``, printed).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -136,6 +138,14 @@ LLM_SLOTS, LLM_CTX, LLM_NEW = 8, 4096, 128
 # phase 4b's deadline drill: far below a 128-token decode at full width
 # (~9 s at the ~14 tokens/s a solo row decodes)
 LLM_DEADLINE_S = 0.5
+# phase 4d: the int8 model against its bf16 twin, held to the JAX package's
+# own bounds for weight-only int8 (tests/test_quant.py: logits cosine above
+# 0.99, greedy argmax agreement above 0.9)
+QUANT_COSINE, QUANT_ARGMAX = 0.99, 0.9
+# phase 4d's traffic: 8 batch completions of this many greedy tokens, and
+# the batch tenant's token bucket (rate per second, burst)
+LLM_BULK_NEW = 256
+QUOTA_RATE, QUOTA_BURST = 8.0, 64.0
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Wan at the reference client's defaults (generate_wan_t2v.py)
 WAN_W, WAN_H, WAN_FRAMES, WAN_STEPS, WAN_CFG = 512, 320, 16, 25, 6.0
@@ -246,9 +256,10 @@ def png_to_array(png: bytes):
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def post(url: str, body: dict):
+def post(url: str, body: dict, headers=None):
     req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
-                                 headers={"Content-Type": "application/json"})
+                                 headers=dict({"Content-Type": "application/json"},
+                                              **(headers or {})))
     with urllib.request.urlopen(req, timeout=900) as r:
         return r.status, dict(r.headers), r.read()
 
@@ -428,15 +439,20 @@ def phase_main_path(torch):
         # one request, alone
         status, headers, png1 = post(url + "/generate", {
             "prompt": "a lighthouse on a cliff at dusk, oil painting",
-            "steps": STEPS, "width": SIZE, "height": SIZE, "seed": 1})
-        # eight concurrent requests with one signature: one micro-batch
+            "steps": STEPS, "width": SIZE, "height": SIZE, "seed": 1},
+            {"X-Tenant-Id": "sd-a"})
+        # eight concurrent requests with one signature: one micro-batch, its
+        # riders split between two tenants (header and body)
         server.batch_window_s = 10.0
         results = [None] * BATCH
 
         def send(i):
-            results[i] = post(url + "/generate", {
-                "prompt": f"a red fox in the snow, study {i}", "steps": STEPS,
-                "width": SIZE, "height": SIZE, "seed": 100 + i})
+            body = {"prompt": f"a red fox in the snow, study {i}", "steps": STEPS,
+                    "width": SIZE, "height": SIZE, "seed": 100 + i}
+            if i % 2:
+                results[i] = post(url + "/generate", dict(body, tenant="sd-b"))
+            else:
+                results[i] = post(url + "/generate", body, {"X-Tenant-Id": "sd-a"})
 
         threads = [threading.Thread(target=send, args=(i,)) for i in range(BATCH)]
         for t in threads:
@@ -457,6 +473,9 @@ def phase_main_path(torch):
         launches_1k = flash_attention.launches
         s_1k = server.batch_log[-1][1]
         metrics1 = scrape(url)
+        tenants = _tenants(url)
+        batches = [r for r in json.loads(http(url + "/debug/flight")[2])["records"]
+                   if r["kind"] == "batch"]
     finally:
         server.stop()
 
@@ -496,6 +515,14 @@ def phase_main_path(torch):
                               ("tpustack_sd_images_total", {}))}
     log(f"main path: /metrics moved {moved} over {sent} requests")
     assert all(v == sent for v in moved.values()), moved
+    sd_acct = {t: tenants["tenants"][t]["servers"]["sd"] for t in ("sd-a", "sd-b")}
+    log(f"main path: /debug/tenants {sd_acct}; batch records' tenants "
+        f"{[r.get('tenants') for r in batches]}")
+    assert sd_acct["sd-a"]["outcomes"] == {"ok": 1 + BATCH // 2}, sd_acct
+    assert sd_acct["sd-b"]["outcomes"] == {"ok": BATCH // 2}, sd_acct
+    assert batches[1]["tenants"] == {"sd-a": BATCH // 2, "sd-b": BATCH // 2}, batches
+    billed = sum(r["denoise_vae_s"] for r in batches[:2])
+    assert abs(sum(a["chip_seconds"] for a in sd_acct.values()) - billed) < 1e-6, sd_acct
 
     # the kernel inside the full-width UNet vs the plain attention path
     g = torch.Generator(DEVICE).manual_seed(1)
@@ -1121,6 +1148,308 @@ def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_
                 verify_forward_steps=verify, completions_sent=sent, e2e=out)
 
 
+def _agreement(torch, a, b) -> dict:
+    """Cosine (float64) and greedy argmax agreement of two logit tensors."""
+    a64, b64 = a.double().flatten(), b.double().flatten()
+    return dict(cosine=(a64 @ b64 / (a64.norm() * b64.norm())).item(),
+                argmax=(a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+                rel_l2=((a64 - b64).norm() / b64.norm()).item())
+
+
+def _tenants(url: str) -> dict:
+    st, _, body = http(url + "/debug/tenants")
+    assert st == 200, st
+    return json.loads(body)
+
+
+def phase_llm_int8(torch, bf16: dict, preset: str = "qwen25_7b", n_new: int = LLM_BULK_NEW,
+                   sizes=(24, 1100)):
+    """Phase 4d: the LLM deployment's configuration (weight-only int8, the
+    int8 KV pool, QoS on with a batch tenant under a token bucket) at
+    Qwen2.5-7B width; returns the launch counts and the measured numbers.
+    ``bf16``: phase 4b's numbers, printed beside this phase's.  ``sizes``:
+    the short and the long batch prompts' token counts (a CPU rehearsal
+    passes the tiny preset, small sizes and a small ``n_new``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpustack_torch.models.llm_generate import Generator
+    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.ops.paged_attention import paged_attention_partial
+    from tpustack_torch.serving.llm_server import LLMServer, build_paged
+
+    on_card = DEVICE == "cuda"
+    policy = {"tenants": {"bulk": {"priority": "batch", "tokens_per_s": QUOTA_RATE,
+                                   "burst_tokens": QUOTA_BURST}}}
+    env = {"LLM_PRESET": preset, "LLM_QUANT": "int8", "LLM_KV_QUANT": "int8",
+           "LLM_CTX": str(LLM_CTX), "LLM_MAX_BATCH": str(LLM_SLOTS),
+           "TPUSTACK_SPEC_TOKENS": "4", "TPUSTACK_QOS": "1",
+           "TPUSTACK_QOS_POLICY": json.dumps(policy), "TPUSTACK_PREFIX_CACHE": "1",
+           "TPUSTACK_KV_BLOCK": "64", "TPUSTACK_FLIGHT_RECORDS": "8192"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        server = LLMServer()
+        sync(torch)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gen, tok, cfg, rt = server.gen, server.tok, server.gen.cfg, server.paged
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    log(f"llm int8: {cfg.n_layers} layers, dim {cfg.dim}, quant {cfg.quant}, kv {cfg.kv_quant}, "
+        f"built (bf16 drawn from seed 0, then quantised) in {time.perf_counter() - t0:.1f} s, "
+        f"peak {peak:.2f} GB while quantising; weights {gen.weight_bytes / 1e9:.3f} GB, KV pool "
+        f"{rt.pool_bytes / 1e9:.3f} GB ({tuple(rt.arrays[0]['k'].shape)} int8 + scales); "
+        f"decode kernel {server.decode_kernel}")
+
+    # accuracy: the int8 model against its bf16 twin from the same seed
+    twin = Generator(dataclasses.replace(cfg, quant=None), dtype=gen.cache_dtype, seed=0,
+                     device=DEVICE)
+    twin_rt = build_paged(twin, LLM_SLOTS, block=rt.block, n_blocks=160, prefix_cache=False)
+    ref, _ = teacher_logits(torch, twin, twin_rt)
+    got, lengths = teacher_logits(torch, gen, rt)
+    acc = _agreement(torch, got[True], ref[True])
+    tokens = torch.as_tensor(np.random.RandomState(5).randint(3, cfg.vocab_size, (2, 128)),
+                             device=DEVICE)
+    with torch.inference_mode():
+        full = _agreement(torch, gen.model(tokens), twin.model(tokens))
+    twin_bytes = twin.weight_bytes
+    del twin, twin_rt, ref, got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"llm int8: weights {gen.weight_bytes / 1e9:.3f} GB int8 against {twin_bytes / 1e9:.3f} "
+        f"GB bf16; teacher-forced 16-step chunk at rows {lengths} against the bf16 twin: "
+        f"cosine {acc['cosine']:.6f} (bound {QUANT_COSINE}), argmax agreement "
+        f"{acc['argmax']:.4f} (bound {QUANT_ARGMAX}), relative L2 {acc['rel_l2']:.4e}; "
+        f"full forward of 2 x 128 tokens (not held to the bounds): cosine "
+        f"{full['cosine']:.6f}, argmax agreement {full['argmax']:.4f}")
+    assert acc["cosine"] > QUANT_COSINE and acc["argmax"] > QUANT_ARGMAX, acc
+    int8_rel = teacher_forced_check(torch, gen, rt)  # phase 4b's check, int8 weights
+
+    # the serving traffic: every row's ids, first-token and finish times
+    seen, lock = [], threading.Lock()
+    wrapped = server._slot_request
+
+    def spy(r):
+        sreq = wrapped(r)
+        rec = {"ids": list(r.ids), "tenant": r.tenant, "priority": r.priority, "first": None}
+        done, toks = sreq.on_done, sreq.on_tokens
+
+        def on_tokens(t):
+            if rec["first"] is None:
+                rec["first"] = time.perf_counter()
+            if toks is not None:
+                toks(t)
+
+        def on_done(tokens, stats):
+            rec.update(out=None if tokens is None else list(tokens), stats=dict(stats),
+                       done=time.perf_counter())
+            with lock:
+                seen.append(rec)
+            done(tokens, stats)
+
+        sreq.on_tokens, sreq.on_done = on_tokens, on_done
+        return sreq
+
+    server._slot_request = spy
+    url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+    bulk_h, chat_h = {"X-Tenant-Id": "bulk"}, {"X-Tenant-Id": "chat"}
+    words = "the batch job summarises every log line of the night shift".split()
+    bodies = [{"prompt": f"Job {i}: " + _text_of(tok, words, sizes[0] - 3)}
+              for i in range(LLM_SLOTS - 1)]
+    bodies.append({"prompt": "Job 7: " + _text_of(tok, ("a long report on device memory "
+                                                        "bandwidth and queues").split(),
+                                                  sizes[1])})
+    bodies = [dict(b, n_predict=n_new, temperature=0, cache_prompt=False) for b in bodies]
+    chat = {"prompt": "What is the status of node 7?", "n_predict": 32, "temperature": 0,
+            "cache_prompt": False}
+    try:
+        check_ready(url, "llm int8")
+        st, _, _ = http(url + "/completion", {"prompt": "warm up", "n_predict": 4,
+                                              "temperature": 0, "cache_prompt": False}, chat_h)
+        assert st == 200, st
+        wait_engine_idle(server)
+        sync(torch)
+        metrics0, tenants0 = scrape(url), _tenants(url)
+        runs0 = len(server.run_log)
+        with lock:
+            seen.clear()
+        paged_attention_partial.launches = 0
+        flash_attention.launches = 0
+        # 1. eight batch completions fill every slot, then one interactive
+        results = [None] * LLM_SLOTS
+
+        def send(i):
+            results[i] = http(url + "/completion", bodies[i], bulk_h)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(LLM_SLOTS)]
+        for t in threads:
+            t.start()
+        t_end = time.time() + 600
+        while True:  # every slot holds a batch row that is past its prefill
+            eng = server._engine
+            slots = list(getattr(eng, "_slots_view", None) or [])
+            if len(slots) == LLM_SLOTS and all(s.req is not None and not s.pending
+                                               for s in slots):
+                break
+            assert time.time() < t_end, "the batch rows never filled the slots"
+            time.sleep(0.005)
+        t_chat = time.perf_counter()
+        st_chat, _, chat_out = http(url + "/completion", chat, chat_h)
+        chat_wall = time.perf_counter() - t_chat
+        for t in threads:
+            t.join(timeout=900)
+        batch_wall = time.perf_counter() - t1
+        wait_engine_idle(server)
+        with lock:
+            batch_seen = [r for r in seen if r["tenant"] == "bulk"]
+            chat_seen = [r for r in seen if r["tenant"] == "chat"]
+        # 2. each preempted row again, alone (nothing waits: no preemption)
+        reruns = []
+        for r in (r for r in batch_seen if r["stats"].get("preempted")):
+            body = next(b for b in bodies if tok.encode(b["prompt"]) == r["ids"])
+            n0 = len(seen)
+            st, _, again_body = http(url + "/completion", body, chat_h)
+            assert st == 200, st
+            wait_engine_idle(server)
+            with lock:
+                again = seen[n0]["out"]
+            lead = next((j for j, (x, y) in enumerate(zip(r["out"], again)) if x != y),
+                        min(len(r["out"]), len(again)))
+            again_body = json.loads(again_body)
+            reruns.append(dict(prompt_tokens=len(r["ids"]), leading_equal=lead,
+                               of=len(again), equal=r["out"] == again,
+                               served=again_body["tokens_evaluated"]
+                               + again_body["tokens_predicted"]))
+        # 3. the batch tenant is in debt now: its own 429; another tenant 200
+        st_q, hd_q, body_q = http(url + "/completion", dict(bodies[0], n_predict=8), bulk_h)
+        qos_q = _tenants(url)["qos"]
+        st_ok, _, ok_out = http(url + "/completion", dict(chat, n_predict=8), chat_h)
+        wait_engine_idle(server)
+        sync(torch)
+        paged_launches = paged_attention_partial.launches
+        flash_launches = flash_attention.launches
+        runs = list(server.run_log)[runs0:]
+        props = json.loads(http(url + "/props")[2])
+        tenants1 = _tenants(url)
+        flight = json.loads(http(url + "/debug/flight")[2])
+        metrics1 = scrape(url)
+    finally:
+        server.stop()
+
+    # every request whole
+    statuses = [r[0] for r in results] + [st_chat]
+    outs = [json.loads(r[2]) for r in results]
+    chat_out = json.loads(chat_out)
+    log(f"llm int8: statuses {statuses}; batch tokens {[o['tokens_predicted'] for o in outs]}, "
+        f"interactive {chat_out['tokens_predicted']} in {chat_wall:.2f} s; the batch in "
+        f"{batch_wall:.2f} s")
+    assert all(st == 200 for st in statuses), statuses
+    for o, b in zip(outs + [chat_out], bodies + [chat]):
+        assert o["tokens_predicted"] == b["n_predict"] or o["stopped_eos"], o
+    # preemption: parked and resumed, the interactive row served first
+    preempted = sum(r.get("preempted", 0) for r in runs)
+    resumed = sum(r.get("resumed", 0) for r in runs)
+    m_pre = (metric_sum(metrics1, "tpustack_qos_preempt_total", priority="batch")
+             - metric_sum(metrics0, "tpustack_qos_preempt_total", priority="batch"))
+    first_chat = chat_seen[0]["first"]
+    first_done = min(r["done"] for r in batch_seen)
+    log(f"llm int8: preemptions {preempted} (engine) / {m_pre:.0f} (/metrics "
+        f"tpustack_qos_preempt_total), resumes {resumed}; the interactive row's first token "
+        f"{(first_chat - t_chat) * 1e3:.1f} ms after its request, "
+        f"{(first_done - first_chat):.2f} s before the first batch row finished; "
+        f"preempted rows against an uninterrupted run: {reruns}")
+    assert preempted >= 1 and resumed == preempted and m_pre == preempted, (preempted, resumed,
+                                                                           m_pre)
+    assert first_chat < first_done, (first_chat, first_done)
+    assert len(reruns) == sum(1 for r in batch_seen if r["stats"].get("preempted"))
+    rt.cache.clear()
+    assert rt.pool.n_free == rt.pool.capacity_blocks, rt.pool.stats()
+    # the quota: the bucket's own ETA as Retry-After
+    eta = qos_q["tenants"]["bulk"]["buckets"]["tokens"]["refill_eta_s"]
+    log(f"llm int8: quota: bulk {st_q} {hd_q.get('X-Shed-Reason')} Retry-After "
+        f"{hd_q.get('Retry-After')} (bucket ETA {eta:.1f} s, level "
+        f"{qos_q['tenants']['bulk']['buckets']['tokens']['level']:.0f}); an unconfigured "
+        f"tenant {st_ok}; counters {qos_q['counters']}")
+    assert st_q == 429 and hd_q.get("X-Shed-Reason") == "quota", (st_q, hd_q)
+    assert json.loads(body_q)["reason"] == "quota"
+    assert abs(int(hd_q["Retry-After"]) - math.ceil(eta)) <= 1, (hd_q, eta)
+    assert st_ok == 200 and json.loads(ok_out)["tokens_predicted"] >= 1
+    # tenant accounting: tokens add up, the flight records equal the ledger
+    served = {"bulk": sum(o["tokens_evaluated"] + o["tokens_predicted"] for o in outs)}
+    served["chat"] = (chat_out["tokens_evaluated"] + chat_out["tokens_predicted"]
+                      + sum(r["served"] for r in reruns)
+                      + json.loads(ok_out)["tokens_evaluated"]
+                      + json.loads(ok_out)["tokens_predicted"])
+
+    def llm_acct(snap, t):
+        return snap["tenants"].get(t, {}).get("servers", {}).get("llm", {})
+
+    charged = {t: sum(llm_acct(tenants1, t).get(k, 0) - llm_acct(tenants0, t).get(k, 0)
+                      for k in ("prompt_tokens", "generated_tokens")) for t in served}
+    chip = flight["aggregates"].get("tenant_chip_seconds", {})
+    ledger_chip = {t: llm_acct(tenants1, t).get("chip_seconds", 0.0) for t in chip}
+    log(f"llm int8: /debug/tenants tokens charged {charged} against served {served}; "
+        f"chip-seconds flight {chip} ledger {ledger_chip}; outcomes "
+        f"{ {t: llm_acct(tenants1, t).get('outcomes') for t in served} }")
+    assert {"bulk", "chat"} <= set(tenants1["tenants"]), sorted(tenants1["tenants"])
+    assert charged == served, (charged, served)
+    assert set(chip) == {"bulk", "chat"} and all(
+        abs(chip[t] - ledger_chip[t]) <= 1e-4 for t in chip), (chip, ledger_chip)
+    # launches: 28 per forward step; flash for each from-zero prefill of a
+    # >512-token prompt (the long batch row and its rerun, if it was parked;
+    # a resume warm-starts one token on the plain path)
+    steps = sum(r["kernel_forward_steps"] for r in runs)
+    verify = sum(r.get("spec_dispatches", 0) for r in runs)
+    long_prefills = sum(1 for b in bodies if len(tok.encode(b["prompt"])) > 512) + sum(
+        1 for r in reruns if r["prompt_tokens"] > 512)
+    want_paged = cfg.n_layers * steps if on_card else 0
+    want_flash = cfg.n_layers * long_prefills if on_card else 0
+    log(f"llm int8: /props decode_kernel {props['decode_kernel']} quant {props['quant']} "
+        f"kv_quant {props['kv_quant']}; {len(runs)} engine runs, {steps} kernel forward steps; "
+        f"paged_attention launches {paged_launches} (expected {cfg.n_layers} x {steps} = "
+        f"{want_paged}: {cfg.n_layers} x {steps - verify} decode, {cfg.n_layers} x {verify} "
+        f"verify); flash_attention launches {flash_launches} (expected {want_flash}: "
+        f"{long_prefills} from-zero prefill(s) of a >512-token prompt)")
+    assert props["quant"] == "int8" and props["kv_quant"] == "int8"
+    assert props["decode_kernel"] == "paged_flash" or not on_card, props
+    assert all(r["decode_kernel"] == props["decode_kernel"] for r in runs), runs
+    assert paged_launches == want_paged and steps > 0, (paged_launches, want_paged)
+    assert flash_launches == want_flash, (flash_launches, want_flash)
+    e2e = dict(weight_bytes=gen.weight_bytes, bf16_weight_bytes=twin_bytes,
+               pool_bytes=rt.pool_bytes, quantise_peak_gb=peak, teacher=acc, full_forward=full,
+               int8_kernel_vs_gather_rel_l2=int8_rel, preempted=preempted, resumed=resumed,
+               chat_first_token_ms=(first_chat - t_chat) * 1e3, chat_wall_s=chat_wall,
+               batch_wall_s=batch_wall, batch_tokens=sum(o["tokens_predicted"] for o in outs),
+               reruns=reruns, retry_after=int(hd_q["Retry-After"]), bucket_eta_s=eta,
+               forward_steps=steps, verify_forward_steps=verify)
+    if on_card:
+        prof = profile_decode(torch, gen, rt)
+        e2e.update(prof)
+        log("llm int8 vs bf16 (one call; bf16 from phase 4b): decode step wall "
+            f"{prof.get('decode_step_wall_ms', 0):.2f} vs {bf16.get('decode_step_wall_ms', 0):.2f}"
+            f" ms, device {prof.get('decode_step_device_ms', 0):.2f} vs "
+            f"{bf16.get('decode_step_device_ms', 0):.2f} ms, idle "
+            f"{prof.get('decode_idle_share', 0):.3f} vs {bf16.get('decode_idle_share', 0):.3f}; "
+            f"verify wall {prof.get('verify_step_wall_ms', 0):.2f} vs "
+            f"{bf16.get('verify_step_wall_ms', 0):.2f} ms, device "
+            f"{prof.get('verify_step_device_ms', 0):.2f} vs "
+            f"{bf16.get('verify_step_device_ms', 0):.2f} ms")
+    del server, rt, gen
+    return dict(paged_launches=paged_launches, flash_launches=flash_launches, e2e=e2e,
+                paged_launches_by_step={"decode": cfg.n_layers * (steps - verify),
+                                        "verify": cfg.n_layers * verify})
+
+
 def _decode_state(torch, gen, rt, lengths, seed=0):
     """Eight rows prefilled from random prompts of ``lengths`` into fresh
     pool blocks; returns the host state for ``Generator._decode_scan_paged``."""
@@ -1148,10 +1477,11 @@ def _decode_state(torch, gen, rt, lengths, seed=0):
     return state, blocks
 
 
-def teacher_forced_check(torch, gen, rt, steps: int = 16) -> float:
-    """One decode chunk from one state, teacher-forced through the paged
-    kernel and through the gather path with the plain partial; returns the
-    logits' relative L2 (limit LLM_LOGITS_REL_L2)."""
+def teacher_logits(torch, gen, rt, steps: int = 16, flashes=(True,)):
+    """``{flash: logits [8, steps, V]}``: one decode chunk from one state of
+    eight rows (3000 ... 1 tokens, prompts drawn from seed 0), teacher-forced
+    with tokens drawn from seed 1, through the paged kernel (True) and/or
+    the gather path with the plain partial (False)."""
     import numpy as np
 
     lengths = [min(n, gen.cfg.max_seq - steps - 1)
@@ -1160,12 +1490,20 @@ def teacher_forced_check(torch, gen, rt, steps: int = 16) -> float:
     teacher = torch.as_tensor(np.random.RandomState(1).randint(3, gen.cfg.vocab_size,
                                                                (8, steps)), device=DEVICE)
     out = {}
-    for flash in (True, False):
+    for flash in flashes:
         *_, logits = gen._decode_scan_paged(st["first"], st["cur"], st["active"], rt.arrays,
                                             st["bt"], st["gens"], st["temp"], st["topk"],
                                             st["greedy"], steps, flash=flash, teacher=teacher)
         out[flash] = logits
     rt.pool.decref(blocks)
+    return out, lengths
+
+
+def teacher_forced_check(torch, gen, rt, steps: int = 16) -> float:
+    """One decode chunk from one state, teacher-forced through the paged
+    kernel and through the gather path with the plain partial; returns the
+    logits' relative L2 (limit LLM_LOGITS_REL_L2)."""
+    out, lengths = teacher_logits(torch, gen, rt, steps, flashes=(True, False))
     a, b = out[True], out[False]
     rel = ((a - b).norm() / b.norm()).item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
@@ -1295,19 +1633,28 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
     from tpustack_torch.models.wan import WanConfig, WanPipeline
     from tpustack_torch.models.wan.dit import set_attn_impl
     from tpustack_torch.ops.flash_attention import flash_attention
-    from tpustack_torch.serving.graph_server import GraphServer, WanRuntime
+    from tpustack_torch.serving.graph_server import GraphServer, WanRuntime, _text_quant
 
     on_card = DEVICE == "cuda"
     client = _wan_client()
+    client.TENANT = "wan-client"  # X-Tenant-Id on every request the client sends
     cfg = WanConfig.tiny() if preset == "tiny" else WanConfig.wan_1_3b()
+    # WAN_TEXT_QUANT as the server resolves it: unset is the int8 umt5
+    # tower for the full-width preset, as in the JAX package
+    tq = _text_quant(preset)
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, quant=tq))
     t0 = time.perf_counter()
     pipe = WanPipeline(cfg, device=DEVICE, seed=0)
     sync(torch)
-    n_text = sum(p.numel() for p in pipe.text_encoder.parameters())
+    text_t = list(pipe.text_encoder.parameters()) + list(pipe.text_encoder.buffers())
+    n_text = sum(t.numel() for t in text_t)
+    text_bytes = sum(t.numel() * t.element_size() for t in text_t)
     n_dit = sum(p.numel() for p in pipe.dit.parameters())
     log(f"wan: {preset} (DiT dim {cfg.dit.dim} x {cfg.dit.num_layers} layers, "
         f"{cfg.dit.num_heads} heads of {cfg.dit.dim // cfg.dit.num_heads}, {n_dit / 1e9:.3f} B "
-        f"params; umt5 dim {cfg.text.dim} x {cfg.text.num_layers}, {n_text / 1e9:.3f} B), "
+        f"params; umt5 dim {cfg.text.dim} x {cfg.text.num_layers}, {n_text / 1e9:.3f} B, "
+        f"WAN_TEXT_QUANT {os.environ.get('WAN_TEXT_QUANT')!r} -> {tq}: {text_bytes / 1e9:.3f} "
+        f"GB against {n_text * 2 / 1e9:.3f} GB in bf16), "
         f"{pipe.dtype}, built on {pipe.device} in {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9 if on_card else 0:.2f} GB allocated")
     width, height = size
@@ -1359,6 +1706,9 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
         fallbacks = server.batch_fallbacks
         recs = list(server.dispatch_log)
         metrics1 = scrape(url)
+        tenants = _tenants(url)
+        flight = [r for r in json.loads(http(url + "/debug/flight")[2])["records"]
+                  if r["kind"] == "dispatch"]
     finally:
         server.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
@@ -1386,6 +1736,11 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
                               ("tpustack_graph_prompts_total", dict(status="success")))}
     log(f"wan: /metrics moved {moved} over 3 prompts")
     assert all(v == 3 for v in moved.values()), moved
+    acct = tenants["tenants"]["wan-client"]["servers"]["graph"]
+    log(f"wan: /debug/tenants wan-client {acct}; dispatch records' tenants "
+        f"{[r.get('tenants') for r in flight]}")
+    assert acct["outcomes"] == {"ok": 3} and acct["chip_seconds"] > 0, acct
+    assert [r.get("tenants") for r in flight] == [{"wan-client": 1}, {"wan-client": 2}], flight
     row0 = _levels(pair_videos[0], solo_video)
     log(f"wan: the pair's row 0 vs the solo video of the same (prompt, seed): |diff| mean "
         f"{row0['mean']:.3f} levels (limit {WAN_PAIR_MEAN_LEVELS}), p99 {row0['p99']:.0f}, max "
@@ -1426,6 +1781,7 @@ def phase_wan(torch, preset: str = "wan_1_3b", size=(WAN_W, WAN_H), frames: int 
         f"max {dec['max']}")
     assert full.shape == streamed.shape and dec["mean"] <= WAN_STREAM_MEAN_LEVELS, dec
     e2e = dict(s_per_video_b1=b1["total_s"], s_per_video_pair=b2["total_s"] / 2, b1=b1,
+               text_quant=tq, text_bytes=text_bytes, text_params=n_text,
                pair=b2, solo_wall_s=solo_wall, pair_wall_s=pair_wall, dit_rel_l2=rel,
                pair_row0_levels=row0, stream_decode_levels=dec, peak_gb=peak_gb,
                dispatches=[r["batch"] for r in recs], batch_fallbacks=fallbacks)
@@ -1577,6 +1933,11 @@ def main() -> int:
     records += timed("3 flash llm", phase_kernels, torch,
                      llm_flash_cases(llm["prefix_hit_tokens"]), sm_mhz)
 
+    # phase 4d: the deployed LLM configuration (int8 weights and KV, QoS)
+    llm8 = timed("4d llm int8", phase_llm_int8, torch, llm["e2e"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 4c: the Wan T2V path
     wan = timed("4c wan", phase_wan, torch)
     gc.collect()
@@ -1597,9 +1958,10 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "also_replaces": KERNEL_ALSO_REPLACES,
-        "launches": main_path["launches"] + llm["flash_launches"] + wan["launches"],
+        "launches": (main_path["launches"] + llm["flash_launches"] + llm8["flash_launches"]
+                     + wan["launches"]),
         "launches_by_path": {"sd15": main_path["launches"], "llm": llm["flash_launches"],
-                             "wan": wan["launches"]},
+                             "llm_int8": llm8["flash_launches"], "wan": wan["launches"]},
         "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL and REL_L2
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "rel_l2": max(r["rel_l2"] for r in records),
@@ -1609,9 +1971,10 @@ def main() -> int:
         "shape": head["label"], "shapes": detail, "sass": sass["flash_attention"],
     }, {
         "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
-        "replaces": PAGED_REPLACES, "launches": llm["paged_launches"],
-        "launches_by_path": {"llm": llm["paged_launches"]},
+        "replaces": PAGED_REPLACES, "launches": llm["paged_launches"] + llm8["paged_launches"],
+        "launches_by_path": {"llm": llm["paged_launches"], "llm_int8": llm8["paged_launches"]},
         "launches_by_step": llm["paged_launches_by_step"],
+        "launches_by_step_int8": llm8["paged_launches_by_step"],
         "ok": all(r["ok"] for r in paged_records),
         "max_abs_err": max(r["max_abs_err"] for r in paged_records),
         "rel_l2": max(r["rel_l2"] for r in paged_records),
@@ -1623,7 +1986,7 @@ def main() -> int:
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
                                                        "s_per_image_1024", "dispatches",
                                                        "unet_rel_l2")},
-                    "llm": llm["e2e"], "wan": wan["e2e"], "card": smi,
+                    "llm": llm["e2e"], "llm_int8": llm8["e2e"], "wan": wan["e2e"], "card": smi,
                     "phase_wall_s": walls}))
     log(json.dumps({"kernels": kernels}))  # the line before the last
     # phase 6

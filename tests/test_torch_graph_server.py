@@ -209,15 +209,36 @@ def test_concurrent_submits_all_publish_with_distinct_files(server):
     assert json.loads(_get(server, "/queue")[1]) == {"queue_running": [], "queue_pending": []}
 
 
+@pytest.mark.parametrize("raw", [None, "", "none", "off", "int8", " INT8 ", "fp4"])
+@pytest.mark.parametrize("preset", ["wan_1_3b", "tiny"])
+def test_wan_text_quant_resolution_equals_jax(monkeypatch, raw, preset):
+    """Unset means the int8 tower for every preset but tiny; none/off opts
+    out; anything else raises at startup: the JAX server's rule."""
+    from tpustack.serving.graph_server import _text_quant as jax_text_quant
+
+    if raw is None:
+        monkeypatch.delenv("WAN_TEXT_QUANT", raising=False)
+    else:
+        monkeypatch.setenv("WAN_TEXT_QUANT", raw)
+    if raw == "fp4":
+        with pytest.raises(ValueError, match="fp4"):
+            gs._text_quant(preset)
+        with pytest.raises(ValueError):
+            jax_text_quant(preset)
+        return
+    assert gs._text_quant(preset) == jax_text_quant(preset)
+    assert gs._text_quant(preset) == ("int8" if raw in ("int8", " INT8 ")
+                                      or (not raw and preset != "tiny") else None)
+
+
 def test_runtime_env_contract(tmp_path, monkeypatch):
     monkeypatch.setenv("WAN_TEXT_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        gs._check_text_quant()
+    assert gs._text_quant("tiny") == "int8"
     monkeypatch.setenv("WAN_TEXT_QUANT", "fp4")
     with pytest.raises(ValueError):
-        gs._check_text_quant()
+        gs._text_quant("wan_1_3b")
     monkeypatch.setenv("WAN_TEXT_QUANT", "none")
-    gs._check_text_quant()
+    assert gs._text_quant("wan_1_3b") is None
     rt = gs.WanRuntime(models_dir=str(tmp_path / "m"), output_dir=str(tmp_path / "o"))
     assert rt.unet_names() == [gs.CANONICAL_UNET]
     monkeypatch.setenv("WAN_ALLOW_RANDOM", "0")

@@ -57,7 +57,7 @@ def _prefill(models, seed=0):
     jl, jc = _jax_apply(jgen, jnp.asarray(tokens), jnp.asarray(pos),
                         jax_init_caches(jgen.cfg, B, jnp.float32), 0, None,
                         jnp.asarray(lengths - 1))
-    pc = init_kv_caches(cfg, B, torch.float32)
+    pc = init_kv_caches(cfg, B, torch.float32, "cpu")
     with torch.no_grad():
         pl = model(torch.from_numpy(tokens).long(), torch.from_numpy(pos).long(), pc, 0, None,
                    torch.from_numpy(lengths - 1))

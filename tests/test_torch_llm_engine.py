@@ -65,8 +65,8 @@ def _jax_runtime(jgen):
 
 def _port_runtime(pgen):
     pool = kv_pool.KVBlockPool(CAP + 1, BLOCK)
-    return kv_pool.PagedKVRuntime(init_kv_pool(pgen.cfg, CAP + 1, BLOCK, torch.float32), pool,
-                                  pgen.cfg.max_seq, kv_pool.PagedPrefixCache(pool))
+    return kv_pool.PagedKVRuntime(init_kv_pool(pgen.cfg, CAP + 1, BLOCK, torch.float32, "cpu"),
+                                  pool, pgen.cfg.max_seq, kv_pool.PagedPrefixCache(pool))
 
 
 def _serve(side, gen, rt, waves, *, spec=None, flash=False, max_new=12, sample=None,
@@ -211,7 +211,7 @@ def test_pool_exhaustion_errors_the_request_and_leaks_nothing(gens):
     every reference; the others are served."""
     _, pgen = gens
     pool = kv_pool.KVBlockPool(4 + 1, BLOCK)
-    rt = kv_pool.PagedKVRuntime(init_kv_pool(pgen.cfg, 5, BLOCK, torch.float32), pool,
+    rt = kv_pool.PagedKVRuntime(init_kv_pool(pgen.cfg, 5, BLOCK, torch.float32, "cpu"), pool,
                                 pgen.cfg.max_seq)
     res = {}
     reqs = [SlotRequest(ids=[3, 4, 5], max_new=20, sample=SampleConfig(greedy=True),

@@ -3,9 +3,10 @@
 The llama.cpp surface of ``tpustack/serving/llm_server.py`` on the port's
 standard-library server: the completion body fields, tokenize/detokenize,
 the OpenAI chat shape, ``/props``, 429 + ``Retry-After`` when the KV pool
-cannot cover a request, and the clear refusals of what the port does not
-serve yet (the dense solo engine, tensor parallelism, weight-only int8,
-checkpoints, tokenizer directories, draft-model drafting).  Streaming is
+cannot cover a request, the clear refusals of what the port does not serve
+yet (the dense solo engine, tensor parallelism, checkpoints, tokenizer
+directories, draft-model drafting) and of an unknown ``LLM_QUANT``, and the
+weight-only int8 boot (``LLM_QUANT=int8``).  Streaming is
 held in ``tests/test_torch_llm_stream.py``.
 """
 
@@ -171,16 +172,40 @@ def test_bad_requests_answer_400(server):
     assert big[0] == 200
 
 
-@pytest.mark.parametrize("env,what", [
-    ({"LLM_TP": "2"}, "LLM_TP"),
-    ({"LLM_QUANT": "int8"}, "LLM_QUANT"),
-    ({"MODEL_DIR": "/nonexistent"}, "MODEL_DIR"),
+@pytest.mark.parametrize("env,what,exc", [
+    pytest.param({"LLM_TP": "2"}, "LLM_TP", NotImplementedError, id="env0-LLM_TP"),
+    # int8 is served now: a quant mode neither package knows still refuses
+    pytest.param({"LLM_QUANT": "int4"}, "LLM_QUANT", ValueError, id="env1-LLM_QUANT"),
+    pytest.param({"MODEL_DIR": "/nonexistent"}, "MODEL_DIR", NotImplementedError,
+                 id="env2-MODEL_DIR"),
 ])
-def test_unported_options_refuse_at_startup(monkeypatch, env, what):
+def test_unported_options_refuse_at_startup(monkeypatch, env, what, exc):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(exc, match=what):
         llm_server._build_generator()
+
+
+def test_llm_quant_int8_boots_the_int8_model(monkeypatch):
+    from tpustack_torch.ops.quant import Int8Dense, Int8Embed
+
+    for k, v in {"LLM_PRESET": "tiny", "LLM_DEVICE": "cpu", "LLM_QUANT": "int8",
+                 "LLM_KV_QUANT": "int8"}.items():
+        monkeypatch.setenv(k, v)
+    gen, tok, preset = llm_server._build_generator()
+    assert gen.cfg.quant == "int8" and gen.cfg.kv_quant == "int8" and preset == "tiny"
+    assert isinstance(gen.model.layers[0].self_attn.q_proj, Int8Dense)
+    assert isinstance(gen.model.embed_tokens, Int8Embed)
+    srv = LLMServer(gen, tok, max_batch=2, paged=build_paged(gen, 2), spec=None)
+    url = f"http://127.0.0.1:{srv.start(host='127.0.0.1', port=0)}"
+    try:
+        st, _, out = _call(url + "/completion", {"prompt": "int8", "n_predict": 6,
+                                                 "temperature": 0})
+        props = _call(url + "/props")[2]
+    finally:
+        srv.stop()
+    assert st == 200 and out["tokens_predicted"] >= 1
+    assert props["quant"] == "int8" and props["kv_quant"] == "int8"
 
 
 def test_unported_engines_and_drafters_refuse(monkeypatch, server):

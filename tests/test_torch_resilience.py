@@ -550,8 +550,7 @@ def test_sd_backpressure_429_with_retry_after(monkeypatch):
 def test_sd_sigterm_mid_batch_drains_clean(monkeypatch):
     monkeypatch.setenv("TPUSTACK_FAULT_SIGTERM_AFTER", "1")
     monkeypatch.setenv("TPUSTACK_DRAIN_TIMEOUT_S", "5")
-    pipe = _StubSDPipe()
-    pipe.release.set()
+    pipe = _StubSDPipe()  # release stays unset until both requests are admitted
     srv = _sd(pipe)
     exits = []
     srv.resilience.on_exit = exits.append
@@ -562,6 +561,10 @@ def test_sd_sigterm_mid_batch_drains_clean(monkeypatch):
     try:
         for t in threads:
             t.start()
+        # the first batch is inside generate and the second request is
+        # admitted: only then may the first batch finish and start the drain
+        assert _wait(lambda: pipe.calls == 1 and srv.resilience.inflight == 2)
+        pipe.release.set()
         for t in threads:
             t.join(timeout=30)
         assert [r[0] for r in out] == [200, 200] and srv.resilience.draining
@@ -571,6 +574,7 @@ def test_sd_sigterm_mid_batch_drains_clean(monkeypatch):
         assert _wait(lambda: exits)
         assert exits == [0]
     finally:
+        pipe.release.set()
         srv.stop()
     assert srv._registry.get_sample_value("tpustack_serving_drain_state",
                                           {"server": "sd"}) == DRAINED

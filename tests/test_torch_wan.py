@@ -169,8 +169,10 @@ def test_tokenizer_dir_raises(monkeypatch):
 
 def test_unported_options_raise():
     cfg = WanConfig.tiny()
-    with pytest.raises(NotImplementedError, match="int8"):
-        dataclasses.replace(cfg.text, quant="int8")
+    # the int8 text tower is ported: only an unknown mode raises now
+    assert dataclasses.replace(cfg.text, quant="int8").quant == "int8"
+    with pytest.raises(ValueError, match="int4"):
+        dataclasses.replace(cfg.text, quant="int4")
     with pytest.raises(NotImplementedError, match="vae3d"):
         dataclasses.replace(cfg.vae, arch="tpu")
 

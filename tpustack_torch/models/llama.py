@@ -20,8 +20,15 @@ KV caches are dicts of tensors that the attention layer writes IN PLACE
   the pool view (``pk``/``pv`` + block table ``bt``, read in place by the
   paged kernel); ``cache_index`` is then ``(cur0 [B], t)``.
 
-Left out: weight-only int8 (the JAX config's ``quant``), tied embeddings,
-ring attention and the training branch beyond plain causal attention.
+Weight-only int8 (``quant="int8"``, ``ops.quant``): the q/k/v/o and MLP
+projections are :class:`~tpustack_torch.ops.quant.Int8Dense`, the embedding
+an :class:`~tpustack_torch.ops.quant.Int8Embed` unless the embeddings are
+tied, and the ``lm_head`` takes ``x`` in the compute dtype and gives float32
+logits.  ``tie_embeddings`` takes the logits from the (float) embedding
+table, as flax's ``Embed.attend`` does.
+
+Left out: ring attention and the training branch beyond plain causal
+attention.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from tpustack_torch.ops.attention import (dot_product_attention,
                                           merge_attention_partials)
 from tpustack_torch.ops.flash_attention import flash_attention
 from tpustack_torch.ops.paged_attention import paged_attention_partial
+from tpustack_torch.ops.quant import Int8Dense, Int8Embed, make_dense
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -54,6 +62,8 @@ class LlamaConfig:
     rope_theta: float = 10_000.0
     rms_eps: float = 1e-5
     qkv_bias: bool = False       # True for Qwen2
+    tie_embeddings: bool = False
+    quant: Optional[str] = None  # None (float weights) | "int8" weight-only serving
     kv_quant: Optional[str] = None  # None (cache in the model dtype) | "int8"
 
     @property
@@ -117,11 +127,11 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        hd = cfg.head_dim
-        self.q_proj = nn.Linear(cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
-        self.k_proj = nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
-        self.v_proj = nn.Linear(cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
-        self.o_proj = nn.Linear(cfg.n_heads * hd, cfg.dim, bias=False, dtype=dtype)
+        hd, q = cfg.head_dim, cfg.quant
+        self.q_proj = make_dense(q, cfg.dim, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
+        self.k_proj = make_dense(q, cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
+        self.v_proj = make_dense(q, cfg.dim, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=dtype)
+        self.o_proj = make_dense(q, cfg.n_heads * hd, cfg.dim, bias=False, dtype=dtype)
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None, cache_index=0,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -210,9 +220,10 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.dim, cfg.ffn_dim, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(cfg.dim, cfg.ffn_dim, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(cfg.ffn_dim, cfg.dim, bias=False, dtype=dtype)
+        q = cfg.quant
+        self.gate_proj = make_dense(q, cfg.dim, cfg.ffn_dim, bias=False, dtype=dtype)
+        self.up_proj = make_dense(q, cfg.dim, cfg.ffn_dim, bias=False, dtype=dtype)
+        self.down_proj = make_dense(q, cfg.ffn_dim, cfg.dim, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -243,10 +254,16 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=dtype)
+        if cfg.quant and not cfg.tie_embeddings:
+            # tied models keep the float table: it also gives the logits
+            self.embed_tokens = Int8Embed(cfg.vocab_size, cfg.dim, dtype=dtype)
+        else:
+            self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=dtype)
         self.layers = nn.ModuleList(LlamaBlock(cfg, dtype) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype)
-        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, dtype=dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = make_dense(cfg.quant, cfg.dim, cfg.vocab_size, bias=False,
+                                      dtype=dtype, out_dtype=torch.float32)
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 kv_caches: Optional[List[KVCache]] = None, cache_index=0,
@@ -265,6 +282,12 @@ class LlamaModel(nn.Module):
         x = self.norm(x)
         if logits_at is not None:
             x = x[torch.arange(b, device=x.device), logits_at.long()][:, None]
+        if self.cfg.tie_embeddings:
+            # flax's Embed.attend: query and table in the compute dtype
+            return F.linear(x.to(self.dtype), self.embed_tokens.weight.to(self.dtype)).float()
+        if isinstance(self.lm_head, Int8Dense):
+            # the int8 head multiplies x in the compute dtype, float32 logits
+            return self.lm_head(x)
         # the JAX model multiplies in float32; a float32 copy of a bf16
         # lm_head would cost 2.2 GB per call at 152k vocab, so half-precision
         # weights multiply in their own type (float32 accumulation on the
@@ -285,7 +308,7 @@ def _kv_dict(cfg: LlamaConfig, shape, dtype, device, prefix: str = "") -> KVCach
     return {prefix + "k": _zeros(shape, dtype, device), prefix + "v": _zeros(shape, dtype, device)}
 
 
-def init_kv_caches(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16, device="cpu",
+def init_kv_caches(cfg: LlamaConfig, batch: int, dtype: torch.dtype, device,
                    length: Optional[int] = None) -> List[KVCache]:
     """Per-layer dense caches ``[batch, length or max_seq, Hkv, D]`` (+ one
     float32 scale per vector when the cache is int8)."""
@@ -293,8 +316,8 @@ def init_kv_caches(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16, device="c
     return [_kv_dict(cfg, shape, dtype, device) for _ in range(cfg.n_layers)]
 
 
-def init_kv_pool(cfg: LlamaConfig, n_blocks: int, block: int, dtype=torch.bfloat16,
-                 device="cpu") -> List[KVCache]:
+def init_kv_pool(cfg: LlamaConfig, n_blocks: int, block: int, dtype: torch.dtype,
+                 device) -> List[KVCache]:
     """Per-layer paged pool tensors ``[n_blocks, block, Hkv, D]`` (+ scales).
     Block 0 is reserved: idle table entries point at it and nothing writes
     it."""
@@ -302,8 +325,8 @@ def init_kv_pool(cfg: LlamaConfig, n_blocks: int, block: int, dtype=torch.bfloat
     return [_kv_dict(cfg, shape, dtype, device) for _ in range(cfg.n_layers)]
 
 
-def init_chunk_bufs(cfg: LlamaConfig, batch: int, chunk: int, dtype=torch.bfloat16,
-                    device="cpu") -> List[KVCache]:
+def init_chunk_bufs(cfg: LlamaConfig, batch: int, chunk: int, dtype: torch.dtype,
+                    device) -> List[KVCache]:
     """Per-layer chunk-local buffers ``ck``/``cv`` ``[batch, chunk, Hkv, D]``
     (+ scales), in the pool's layout so that a flush is a copy."""
     shape = (batch, chunk, cfg.n_kv_heads, cfg.head_dim)

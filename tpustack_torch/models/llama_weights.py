@@ -6,7 +6,11 @@ The port's modules carry the JAX model's names with the checkpoint layout
 key by the rule of ``tpustack/models/llama_weights.py``: ``layers_{i}`` ->
 ``layers.{i}``, ``kernel``/``scale``/``embedding`` -> ``weight``/``scale``/
 ``weight``, and a dense kernel ``[in, out]`` is transposed to a torch Linear
-``[out, in]``.  Loading is ``load_state_dict(strict=True)``.
+``[out, in]``.  Loading is ``load_state_dict(strict=True)``.  A weight-only
+int8 tree (``tpustack.ops.quant.quantize_params``: ``{kernel [in, out]
+int8, scale [out]}`` per projection, ``{embedding int8, scale}`` for the
+table) maps the same way, its int8 leaves kept int8 (a transpose, no
+requantisation).
 
 Loading a Hugging Face checkpoint (``MODEL_DIR``) needs a safetensors reader
 the port does not have yet.
@@ -43,16 +47,17 @@ def jax_path_to_key(path: Tuple[str, ...]) -> str:
 
 
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX ``Generator.params`` tree (numpy or jax arrays) -> a float32
-    state dict for :class:`LlamaModel`."""
+    """The JAX ``Generator.params`` tree (numpy or jax arrays) -> a state
+    dict for :class:`LlamaModel`: float leaves as float32, int8 leaves (a
+    quantised tree) as int8."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(flax_params):
         key = jax_path_to_key(path)
         if key in out:
-            raise ValueError(f"duplicate key {key!r} (from {'/'.join(path)}); is this "
-                             "a weight-only int8 tree? the port takes the float tree")
-        w = np.asarray(leaf, dtype=np.float32)
-        out[key] = torch.tensor(w.T if path[-1] == "kernel" else w)
+            raise ValueError(f"duplicate key {key!r} (from {'/'.join(path)})")
+        w = np.asarray(leaf)
+        w = w if w.dtype == np.int8 else w.astype(np.float32)
+        out[key] = torch.tensor(np.ascontiguousarray(w.T if path[-1] == "kernel" else w))
     return out
 
 

@@ -31,10 +31,28 @@ deadline or a disconnected stream), ``span_ctx`` parents the row's
 ``prefill`` and ``wave`` spans under its HTTP root span, ``on_progress``
 hears ``"prefill"`` before each admission dispatch and ``"wave"`` at each
 fetched wave (the watchdog's beats and the fault injector's points), and a
-flight recorder gets one record per wave.
+flight recorder gets one record per wave, carrying the wave's ``tenants``
+and ``priorities`` splits (``{tenant: slots}``, ``{priority: slots}``).
 
-Left out: QoS preemption, the host RAM tier, chunked prefill, the tenant
-ledger and the sanitizer.
+Tenant accounting (``ledger``, an ``obs.accounting.TenantLedger``): each
+wave's chip-seconds are charged FROM its flight record (the wave's wall
+time split by its ``tenants`` map, so ``/debug/flight`` and
+``/debug/tenants`` hold the same numbers) and each row's KV-block-seconds at
+retirement (blocks held x seconds since ``t_kv_alloc``).
+
+QoS preemption (``preempt_hint``, ``on_preempt``): when the hint says an
+interactive request waits and every slot is busy, the engine parks one
+``batch`` row at a wave boundary, only once no admission wave is pending
+(the port overlaps an admission with the next dispatch).  The parked entry
+keeps the row's pool block references and its history (prompt + tokens so
+far) and re-admits, once a slot is free and the queue is empty, through the
+prefix warm start with ``plen = len(history) - 1``: no prefill work is
+lost, and a greedy row's output is the uninterrupted run's.  The slot's
+speculation state (drafts, the acceptance EMA) is not carried over.
+Parked entries are released when their request is cancelled and when a
+run fails.
+
+Left out: the host RAM tier, chunked prefill and the sanitizer.
 """
 
 from __future__ import annotations
@@ -84,6 +102,15 @@ class SlotRequest:
     kv_blocks: Optional[List[int]] = None
     on_prefill_blocks: Optional[Callable[[List[int]], None]] = None
     speculative: bool = True
+    # tenant accounting: the request's tenant (resolved once by the HTTP
+    # instrumentation, carried here because engine threads do not inherit
+    # the contextvar) and the wall clock its pool blocks were allocated at
+    # (None: the engine's own admission time)
+    tenant: Optional[str] = None
+    t_kv_alloc: Optional[float] = None
+    # QoS priority class, "interactive" | "batch"; None (QoS off) neither
+    # preempts nor can be preempted
+    priority: Optional[str] = None
 
 
 class _Slot:
@@ -133,7 +160,9 @@ class ContinuousEngine:
                  paged_flash: Optional[bool] = None, spec=None,
                  on_spec: Optional[Callable[[int, int], None]] = None,
                  on_progress: Optional[Callable[[str], None]] = None, tracer=None,
-                 flight=None, queue_depth: Optional[Callable[[], int]] = None):
+                 flight=None, queue_depth: Optional[Callable[[], int]] = None, ledger=None,
+                 preempt_hint: Optional[Callable[[], bool]] = None,
+                 on_preempt: Optional[Callable[[Optional[str]], None]] = None):
         if paged is None:
             raise ValueError("the port's engine is paged only: pass a PagedKVRuntime")
         if gen.cfg.max_seq != paged.max_seq:
@@ -161,6 +190,14 @@ class ContinuousEngine:
         self.tracer = tracer
         self.flight = flight
         self._queue_depth_fn = queue_depth
+        # the tenant ledger; None keeps the engine accounting-free
+        self.ledger = ledger
+        # QoS preemption hooks; both None (TPUSTACK_QOS=0) keep the loop
+        # the preemption-free engine
+        self._preempt_hint = preempt_hint
+        self._on_preempt = on_preempt
+        self._parked: List[SlotRequest] = []
+        self._preempted = self._resumed = 0
         self._last_wave_t: Optional[float] = None
         self.paged_flash = (resolve_paged_flash(
             gen.device, gen.cfg, gen.cache_dtype, paged.block,
@@ -433,6 +470,13 @@ class ContinuousEngine:
             s.span.end()
             s.span = None
         if s.blocks:
+            if self.ledger is not None and req is not None and req.tenant is not None:
+                # blocks held x wall since allocation, per reference: a
+                # shared prefix block bills each tenant for its own hold
+                held_s = time.time() - (req.t_kv_alloc if req.t_kv_alloc is not None
+                                        else s.t0)
+                self.ledger.charge_kv_block_seconds(req.tenant,
+                                                    len(s.blocks) * max(0.0, held_s))
             # one decref per reference; blocks the prefix cache also holds
             # survive, the rest are free before on_done fires
             self.paged.pool.decref(s.blocks)
@@ -454,6 +498,112 @@ class ContinuousEngine:
                 "decode_s": decode_s,
                 "tokens_per_s": len(out) / max(decode_s, 1e-9) if out else 0.0,
             })
+
+    # ------------------------------------------------------ QoS preemption
+    def _maybe_preempt(self, slots: List[_Slot]) -> None:
+        """Park one batch row at the wave boundary when an interactive
+        request waits and every slot is busy; the next ``admit_free`` feeds
+        the freed slot.  At most one park per boundary, and none while a
+        park or an admission wave is pending."""
+        if self._preempt_hint is None or self._to_park or self._pending:
+            return
+        if any(s.req is None for s in slots):
+            return  # a free slot exists: nothing to preempt for
+        if not self._preempt_hint():
+            return
+        victim, best = None, -1
+        for i, s in enumerate(slots):
+            if s.req is None or s.pending or s.done or s.req.priority != "batch":
+                continue
+            # the row with the most budget left frees the slot longest
+            rem = s.budget - len(s.out)
+            if rem > best:
+                best, victim = rem, i
+        if victim is not None:
+            self._park_slot(slots, victim)
+
+    def _park_slot(self, slots: List[_Slot], i: int) -> None:
+        """Evict slot ``i``'s row to a parked :class:`SlotRequest` whose
+        ``ids`` are its history (prompt + every consumed token) and whose
+        ``prefix`` is the slot's pool blocks with ``plen = len(history) -
+        1``: positions ``[0, plen)`` hold valid KV, so re-admission is the
+        prefix warm start of the one pending token, and its first sample is
+        the token an uninterrupted greedy run would produce next.  KV that
+        chunks in flight write past ``plen`` is overwritten by that suffix
+        prefill and the decode after it before any position is read."""
+        s = slots[i]
+        req, prior, orig_budget, orig_cached = s.req, list(s.out), s.budget, s.cached
+        blocks = list(s.blocks)
+        # the parked entry inherits the slot's pool references: no decref
+        s.blocks, s.alloc = [], 0
+        s.req, s.done, s.pending = None, True, False
+        if s.span is not None:
+            s.span.add_event("preempted", tokens_so_far=len(prior))
+            s.span.end()
+            s.span = None
+        self._bt[i, :] = 0
+        self._to_park.append(i)
+        # the prior occupancy's tokens were delivered; the resumed
+        # occupancy's retire counts only its own
+        self._retired_tokens += len(prior)
+        new_ids = list(req.ids) + prior
+        plen = len(new_ids) - 1
+        orig_done = req.on_done
+
+        def on_done(tokens, stats):
+            if orig_done is None:
+                return
+            if tokens is None:  # a resume-time admission failure
+                orig_done(None, stats)
+                return
+            # the original request's shape; timings are the resumed
+            # occupancy's
+            st = dict(stats, prompt_tokens=len(req.ids),
+                      generated_tokens=len(prior) + len(tokens), cached_tokens=orig_cached,
+                      prefill_tokens=len(req.ids) - orig_cached,
+                      preempted=stats.get("preempted", 0) + 1)
+            orig_done(prior + tokens, st)
+
+        self._parked.append(SlotRequest(
+            ids=new_ids, max_new=orig_budget - len(prior), sample=req.sample,
+            on_tokens=req.on_tokens, on_done=on_done, cancelled=req.cancelled,
+            # greedy resumes ignore seeds; a seeded sampled row resumes on a
+            # history-derived seed (deterministic, not the uninterrupted chain)
+            seed=None if req.seed is None else (req.seed + plen) % (2 ** 32),
+            prefix=(plen, blocks), span_ctx=req.span_ctx, speculative=req.speculative,
+            tenant=req.tenant, t_kv_alloc=req.t_kv_alloc, priority=req.priority))
+        self._preempted += 1
+        if self.flight is not None:
+            self.flight.record("preempt", slot=i, priority=req.priority, tenant=req.tenant,
+                               parked_tokens=len(prior), prefix_tokens=plen,
+                               blocks=len(blocks))
+        if self._on_preempt is not None:
+            try:
+                self._on_preempt(req.tenant)
+            except Exception:
+                log.exception("on_preempt hook failed")
+
+    def _pop_parked(self) -> Optional[SlotRequest]:
+        """The next parked entry to resume (FIFO); a cancelled entry
+        releases its blocks and reports once."""
+        while self._parked:
+            req = self._parked.pop(0)
+            if req.cancelled():
+                self._release_blocks(req)
+                if req.on_done is not None:
+                    req.on_done(None, {"error": "cancelled while parked"})
+                continue
+            return req
+        return None
+
+    def _release_parked(self) -> None:
+        """Hand back every parked entry's retained blocks (a failed run)."""
+        for req in self._parked:
+            try:
+                self._release_blocks(req)
+            except Exception:
+                log.exception("failed releasing parked blocks")
+        self._parked = []
 
     def _flush_park(self, state) -> None:
         """Apply pending slot parks: frontier 0, inactive, greedy."""
@@ -485,7 +635,8 @@ class ContinuousEngine:
         gen_ctr = 0
         t_start = time.time()
         admitted = 0
-        self._to_park, self._pending = [], []
+        self._to_park, self._pending, self._parked = [], [], []
+        self._preempted = self._resumed = 0
         self._retired_tokens = 0
         self._reset_counters()
 
@@ -497,8 +648,13 @@ class ContinuousEngine:
                     continue
                 req = feed()
                 if req is None:
-                    break
-                admitted += 1
+                    # no fresh work: resume parked rows (counted as resumes)
+                    req = self._pop_parked()
+                    if req is None:
+                        break
+                    self._resumed += 1
+                else:
+                    admitted += 1
                 wave.append((i, req))
             if wave:
                 gen_ctr = self._admit_dispatch(state, slots, wave, gen_ctr)
@@ -525,6 +681,8 @@ class ContinuousEngine:
                     s.blocks = []
             raise
         finally:
+            # parked entries hold references too: none may outlive the run
+            self._release_parked()
             self._slots_view = None
 
         dt = time.time() - t_start
@@ -537,6 +695,8 @@ class ContinuousEngine:
             "kernel_gather_dispatches": self._gather_dispatches,
             "kernel_paged_flash_dispatches": self._flash_dispatches,
             "kernel_forward_steps": self._forward_steps,
+            "preempted": self._preempted,
+            "resumed": self._resumed,
         })
         if self.spec is not None:
             stats.update({
@@ -590,10 +750,25 @@ class ContinuousEngine:
         if s.req.on_tokens is not None:
             s.req.on_tokens(accepted)
 
+    @staticmethod
+    def _occupancy(slots, attr: str) -> Dict[str, int]:
+        """``{tenant or priority: live slots}``: callers take it at the fetch,
+        before retiring finished rows, so a row's last wave still carries
+        (and bills) its tenant."""
+        out: Dict[str, int] = {}
+        for s in slots:
+            v = getattr(s.req, attr) if s.req is not None else None
+            if v is not None:
+                out[v] = out.get(v, 0) + 1
+        return out
+
     def _flight_wave(self, slots, kind: str, tokens: int, weight_passes: int,
-                     occupancy: int, drafted: int = 0, accepted: int = 0) -> None:
+                     occupancy: int, drafted: int = 0, accepted: int = 0,
+                     tenants: Optional[Dict[str, int]] = None,
+                     priorities: Optional[Dict[str, int]] = None) -> None:
         """One flight record for a fetched wave (plain chunk or verify):
-        host-side values only, the fetch has already synchronised."""
+        host-side values only, the fetch has already synchronised.  The
+        ledger's chip-seconds are charged from this record."""
         if self.flight is None:
             return
         now = time.time()
@@ -614,7 +789,13 @@ class ContinuousEngine:
         if age > 0.0:
             rec["slowest_age_s"] = round(age, 3)
             rec["slowest_trace_id"] = slowest
+        if tenants:
+            rec["tenants"] = tenants
+        if priorities:
+            rec["priorities"] = priorities
         self.flight.record(kind, **rec)
+        if self.ledger is not None:
+            self.ledger.charge_flight_wave("llm", rec)
 
     def _consume_block(self, state, slots, block: np.ndarray, snapshot) -> None:
         """Host bookkeeping for one fetched plain chunk."""
@@ -622,6 +803,7 @@ class ContinuousEngine:
             self._on_progress("wave")
         self._mark_wave()
         live = self._live(slots)
+        tenants, priorities = self._occupancy(slots, "tenant"), self._occupancy(slots, "priority")
         wave_tokens = 0
         for i, gid, offset in snapshot:
             s = slots[i]
@@ -645,7 +827,8 @@ class ContinuousEngine:
             self._deliver(s, accepted)
             if s.done:
                 self._retire(state, slots, i, live)
-        self._flight_wave(slots, "wave", wave_tokens, self.chunk, live)
+        self._flight_wave(slots, "wave", wave_tokens, self.chunk, live, tenants=tenants,
+                          priorities=priorities)
 
     def _drain_idle(self, state, slots, dispatch_ok) -> None:
         """Nothing in flight: resolve every admission (blocking) and retire
@@ -666,9 +849,13 @@ class ContinuousEngine:
 
     def _run_loop(self, state, slots, chain, admit_free, dispatch_ok) -> None:
         while True:
-            self._flush_park(state)  # before admissions: a park must not zero a new slot
+            # wave boundary: park a batch row first if an interactive
+            # request waits, then flush parks before admissions (a park
+            # must not zero a new slot)
+            self._maybe_preempt(slots)
+            self._flush_park(state)
             admit_free()
-            if self._live(slots) == 0:
+            if self._live(slots) == 0 and not self._parked:
                 break
             self._resolve_pending(state, slots, only_ready=True)
             self._fill_chain(state, slots, chain, dispatch_ok)
@@ -752,6 +939,7 @@ class ContinuousEngine:
         self._mark_wave()
         alpha = self.spec.ema_alpha
         live = self._live(slots)
+        tenants, priorities = self._occupancy(slots, "tenant"), self._occupancy(slots, "priority")
         wave_tokens = wave_drafted = wave_accepted = 0
         for i, gid in rows:
             s = slots[i]
@@ -793,16 +981,18 @@ class ContinuousEngine:
             if s.done:
                 self._retire(state, slots, i, live)
         # one verify dispatch = one weight pass for all its strides
-        self._flight_wave(slots, "verify", wave_tokens, 1, live, wave_drafted, wave_accepted)
+        self._flight_wave(slots, "verify", wave_tokens, 1, live, wave_drafted, wave_accepted,
+                          tenants=tenants, priorities=priorities)
 
     def _run_loop_spec(self, state, slots, chain, admit_free, dispatch_ok) -> None:
         """Variable-stride loop: when the host is caught up and a slot has a
         draft, one verify step; otherwise plain pipelined chunks, refilled
         only while no slot would draft."""
         while True:
+            self._maybe_preempt(slots)
             self._flush_park(state)
             admit_free()
-            if self._live(slots) == 0:
+            if self._live(slots) == 0 and not self._parked:
                 break
             self._resolve_pending(state, slots, only_ready=True)
             plan = None

@@ -21,6 +21,7 @@ match JAX's threefry numbers.  Greedy rows never draw.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -30,6 +31,7 @@ from tpustack_torch.models.llama import (LlamaConfig, LlamaModel, init_chunk_buf
                                          init_kv_caches)
 from tpustack_torch.models.llama_weights import init_random_, load_params
 from tpustack_torch.ops.paged_attention import gather_pool
+from tpustack_torch.ops.quant import quantize_module_
 from tpustack_torch.utils import get_logger, resolve_device
 
 log = get_logger("models.llm_generate")
@@ -98,16 +100,37 @@ class Generator:
         self.cfg = config
         self.device = resolve_device(device)
         self.cache_dtype = dtype
-        with torch.device("meta"):
-            model = LlamaModel(config, dtype)
-        model = model.to_empty(device=self.device)
-        if params is None:
-            log.warning("Initialising %d-layer LLM with RANDOM weights (seed %d)",
-                        config.n_layers, seed)
-            init_random_(model, seed)
+        if params is None and config.quant:
+            # random-init the float twin, then quantise it layer by layer
+            # (int8 layers start at zero: a degenerate model); the peak is
+            # the float model plus one layer's int8
+            model = self._random_model(dataclasses.replace(config, quant=None), dtype, seed)
+            t0 = time.time()
+            quantize_module_(model, quantize_embed=not config.tie_embeddings, dtype=dtype,
+                             out_dtypes={"lm_head": torch.float32})
+            model.cfg = config
+            log.info("Quantised weights to int8 in %.1fs", time.time() - t0)
+        elif params is None:
+            model = self._random_model(config, dtype, seed)
         else:
+            with torch.device("meta"):
+                model = LlamaModel(config, dtype)
+            model = model.to_empty(device=self.device)
             load_params(model, params)
         self.model = model.eval().requires_grad_(False)
+
+    def _random_model(self, config: LlamaConfig, dtype: torch.dtype, seed: int) -> LlamaModel:
+        log.warning("Initialising %d-layer LLM with RANDOM weights (seed %d)",
+                    config.n_layers, seed)
+        with torch.device("meta"):
+            model = LlamaModel(config, dtype)
+        return init_random_(model.to_empty(device=self.device), seed)
+
+    @property
+    def weight_bytes(self) -> int:
+        """Bytes of the model's parameters and buffers on the device."""
+        return sum(t.numel() * t.element_size()
+                   for t in list(self.model.parameters()) + list(self.model.buffers()))
 
     # ------------------------------------------------------------- helpers
     def _h2d(self, x, dtype: torch.dtype) -> torch.Tensor:

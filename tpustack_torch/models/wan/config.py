@@ -7,9 +7,9 @@ configuration means the same architecture in both packages; only
 tower; the z=16 causal 3D VAE), bf16 compute on the card; ``tiny()`` is a
 shape-preserving miniature for CPU tests and fast server boots.
 
-Not ported yet: the weight-only int8 text tower (``UMT5Config.quant``) and
-the ``"tpu"`` VAE arch (``vae3d``); both raise here rather than being
-ignored.
+``UMT5Config.quant="int8"`` is the weight-only int8 text tower
+(``ops.quant``).  Not ported yet: the ``"tpu"`` VAE arch (``vae3d``); it
+raises here rather than being ignored.
 """
 
 from __future__ import annotations
@@ -43,16 +43,13 @@ class UMT5Config:
     rel_max_distance: int = 128
     max_length: int = 512
     dropout: float = 0.0
-    # "int8" is the JAX package's weight-only quantised tower; the port has
-    # no int8 linear yet, so asking for one fails instead of serving bf16
+    # "int8": the weight-only quantised tower (ops.quant; umt5-xxl's
+    # projections and embedding table, 5.7 GB instead of 11.4 in bf16)
     quant: Optional[str] = None
 
     def __post_init__(self):
-        if self.quant is not None:
-            raise NotImplementedError(
-                f"UMT5Config.quant={self.quant!r}: the weight-only int8 text "
-                "tower (ops/quant.py) is not ported yet; use quant=None (bf16 "
-                "umt5-xxl, ~11.4 GB, fits beside the DiT on an 80 GB card)")
+        if self.quant not in (None, "int8"):
+            raise ValueError(f"UMT5Config.quant={self.quant!r} unsupported (None or 'int8')")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ Differences from the JAX pipeline, all deliberate:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
 import time
@@ -41,10 +42,11 @@ from tpustack_torch.models.wan.dit import WanDiT
 from tpustack_torch.models.wan.scheduler import (canonical_sampler, euler_step, heun_step,
                                                  make_flow_schedule)
 from tpustack_torch.models.wan.tokenizer import load_tokenizer
-from tpustack_torch.models.wan.umt5 import UMT5Encoder
+from tpustack_torch.models.wan.umt5 import EMBED_KEYS, UMT5Encoder
 from tpustack_torch.models.wan.wanvae import (WanVAEDecoder, WanVAEDecoderStream,
                                               init_decode_caches)
 from tpustack_torch.models.wan.weights import build, init_random, load_into
+from tpustack_torch.ops.quant import UMT5_QUANTIZABLE, quantize_module_
 from tpustack_torch.utils import get_logger, resolve_device
 
 log = get_logger("models.wan.pipeline")
@@ -81,7 +83,10 @@ class WanPipeline:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.dtype = dt = c.compute_dtype
-        self.text_encoder = build(lambda: UMT5Encoder(c.text), dt, _TEXT_F32, dev)
+        # an int8 text tower is drawn as its float twin and then quantised
+        # (int8 layers start at zero); a loaded one is built int8
+        text_cfg = (dataclasses.replace(c.text, quant=None) if params is None else c.text)
+        self.text_encoder = build(lambda: UMT5Encoder(text_cfg, dt), dt, _TEXT_F32, dev)
         self.dit = build(lambda: WanDiT(c.dit), dt, WanDiT.FLOAT32, dev)
         self.vae_decoder = build(lambda: WanVAEDecoder(c.vae), dt, _VAE_F32, dev)
         self.vae_decoder_stream = WanVAEDecoderStream(self.vae_decoder)
@@ -93,6 +98,12 @@ class WanPipeline:
             gen = torch.Generator(dev).manual_seed(seed)
             for m in towers.values():
                 init_random(m, gen)
+            if c.text.quant:
+                t0 = time.perf_counter()
+                quantize_module_(self.text_encoder, names=UMT5_QUANTIZABLE, embed_keys=EMBED_KEYS,
+                                 dtype=dt)
+                log.info("Quantised the umt5 text tower to int8 in %.1fs",
+                         time.perf_counter() - t0)
         else:
             for name, m in towers.items():
                 load_into(m, params[name])

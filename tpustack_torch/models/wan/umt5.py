@@ -12,6 +12,11 @@ bias added to float32 logits, masked keys at -1e30, a float32 softmax cast
 to the compute dtype before P.V; the gated tanh-GELU FFN; the output zeroed
 at pad positions.  The attention is plain matmuls, as the JAX package's is
 plain einsum: it is not a Pallas kernel there.
+
+With ``quant="int8"`` the q/k/v/o and FFN projections are
+:class:`~tpustack_torch.ops.quant.Int8Dense` and the table ``shared`` an
+:class:`~tpustack_torch.ops.quant.Int8Embed` (``ops.quant.UMT5_QUANTIZABLE``
+and :data:`EMBED_KEYS`), computing in ``dtype``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpustack_torch.models.wan.config import UMT5Config
+from tpustack_torch.ops.quant import Int8Embed, make_dense
 
 NEG_INF = -1e30
+
+#: the embedding module ``ops.quant`` quantises per row in this tower (the
+#: JAX tree's ``embed``)
+EMBED_KEYS = frozenset({"shared"})
 
 
 class T5LayerNorm(nn.Module):
@@ -57,14 +67,14 @@ def relative_position_bucket(rel_pos: torch.Tensor, num_buckets: int,
 
 
 class UMT5SelfAttention(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
         inner = c.num_heads * c.head_dim
         self.num_heads, self.head_dim = c.num_heads, c.head_dim
-        self.q = nn.Linear(c.dim, inner, bias=False)
-        self.k = nn.Linear(c.dim, inner, bias=False)
-        self.v = nn.Linear(c.dim, inner, bias=False)
-        self.o = nn.Linear(inner, c.dim, bias=False)
+        self.q = make_dense(c.quant, c.dim, inner, bias=False, dtype=dtype)
+        self.k = make_dense(c.quant, c.dim, inner, bias=False, dtype=dtype)
+        self.v = make_dense(c.quant, c.dim, inner, bias=False, dtype=dtype)
+        self.o = make_dense(c.quant, inner, c.dim, bias=False, dtype=dtype)
         # per-layer bias: the UMT5-vs-T5 difference
         self.relative_attention_bias = nn.Embedding(c.rel_buckets, c.num_heads)
 
@@ -81,34 +91,34 @@ class UMT5SelfAttention(nn.Module):
 
 
 class _AttentionLayer(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
-        self.SelfAttention = UMT5SelfAttention(c)
+        self.SelfAttention = UMT5SelfAttention(c, dtype)
         self.layer_norm = T5LayerNorm(c.dim)
 
 
 class _DenseGatedGelu(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
-        self.wi_0 = nn.Linear(c.dim, c.ffn_dim, bias=False)
-        self.wi_1 = nn.Linear(c.dim, c.ffn_dim, bias=False)
-        self.wo = nn.Linear(c.ffn_dim, c.dim, bias=False)
+        self.wi_0 = make_dense(c.quant, c.dim, c.ffn_dim, bias=False, dtype=dtype)
+        self.wi_1 = make_dense(c.quant, c.dim, c.ffn_dim, bias=False, dtype=dtype)
+        self.wo = make_dense(c.quant, c.ffn_dim, c.dim, bias=False, dtype=dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.wo(F.gelu(self.wi_0(h), approximate="tanh") * self.wi_1(h))
 
 
 class _FFLayer(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
-        self.DenseReluDense = _DenseGatedGelu(c)
+        self.DenseReluDense = _DenseGatedGelu(c, dtype)
         self.layer_norm = T5LayerNorm(c.dim)
 
 
 class UMT5Block(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
-        self.layer = nn.ModuleList([_AttentionLayer(c), _FFLayer(c)])
+        self.layer = nn.ModuleList([_AttentionLayer(c, dtype), _FFLayer(c, dtype)])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
         attn, ff = self.layer
@@ -117,21 +127,24 @@ class UMT5Block(nn.Module):
 
 
 class _Stack(nn.Module):
-    def __init__(self, c: UMT5Config):
+    def __init__(self, c: UMT5Config, dtype: torch.dtype):
         super().__init__()
-        self.block = nn.ModuleList([UMT5Block(c) for _ in range(c.num_layers)])
+        self.block = nn.ModuleList([UMT5Block(c, dtype) for _ in range(c.num_layers)])
         self.final_layer_norm = T5LayerNorm(c.dim)
 
 
 class UMT5Encoder(nn.Module):
     """Token ids ``[B, L]`` (+ bool mask) -> embeddings ``[B, L, dim]`` in the
-    embedding's dtype, zero at pad positions."""
+    embedding's dtype, zero at pad positions.  ``dtype``: the compute dtype
+    of the int8 layers (the float layers take the dtype their parameters
+    are cast to)."""
 
-    def __init__(self, cfg: UMT5Config):
+    def __init__(self, cfg: UMT5Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.shared = nn.Embedding(cfg.vocab_size, cfg.dim)
-        self.encoder = _Stack(cfg)
+        self.shared = (Int8Embed(cfg.vocab_size, cfg.dim, dtype=dtype) if cfg.quant
+                       else nn.Embedding(cfg.vocab_size, cfg.dim))
+        self.encoder = _Stack(cfg, dtype)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor = None) -> torch.Tensor:
         c = self.cfg

@@ -114,23 +114,33 @@ def dit_key(path: Path) -> Tuple[str, Callable]:
     raise KeyError(f"unmapped DiT path {'/'.join(path)}")
 
 
+def _int8_leaf(base: str, leaf: str, weight_fn: Callable) -> Tuple[str, Callable]:
+    """A dense or embedding leaf of a float or weight-only int8 tree: the
+    per-channel ``scale`` of an int8 layer keeps its name and layout."""
+    if leaf == "scale":
+        return f"{base}.scale", _ident
+    return f"{base}.weight", weight_fn
+
+
 def umt5_key(path: Path) -> Tuple[str, Callable]:
-    """A flax UMT5 param path -> (state_dict key, layout transform)."""
+    """A flax UMT5 param path (of the float tower, or of the int8 tower
+    ``tpustack.ops.quant.quantize_params`` makes) -> (state_dict key,
+    layout transform)."""
     head = path[0]
     if head == "embed":
-        return "shared.weight", _ident
+        return _int8_leaf("shared", path[-1], _ident)
     if head == "final_norm":
         return "encoder.final_layer_norm.weight", _ident
     if head.startswith("block_"):
         b, mid = f"encoder.block.{int(head.split('_')[1])}", path[1]
         if mid == "attn":
-            return f"{b}.layer.0.SelfAttention.{path[2]}.weight", _linear
+            return _int8_leaf(f"{b}.layer.0.SelfAttention.{path[2]}", path[-1], _linear)
         if mid == "rel_bias":
             return f"{b}.layer.0.SelfAttention.relative_attention_bias.weight", _ident
         if mid == "norm_attn":
             return f"{b}.layer.0.layer_norm.weight", _ident
         if mid in ("wi_0", "wi_1", "wo"):
-            return f"{b}.layer.1.DenseReluDense.{mid}.weight", _linear
+            return _int8_leaf(f"{b}.layer.1.DenseReluDense.{mid}", path[-1], _linear)
         if mid == "norm_ffn":
             return f"{b}.layer.1.layer_norm.weight", _ident
     raise KeyError(f"unmapped UMT5 path {'/'.join(path)}")
@@ -181,15 +191,17 @@ _KEY_FNS = {"text_encoder": umt5_key, "dit": dit_key, "vae_decoder": vae_decoder
 
 
 def tower_from_jax(tree: Tree, tower: str) -> Dict[str, torch.Tensor]:
-    """One tower's flax tree (numpy leaves) -> a float32 ``state_dict``."""
+    """One tower's flax tree (numpy leaves) -> a ``state_dict``: float
+    leaves as float32, the int8 leaves of a quantised tower as int8."""
     key_fn = _KEY_FNS[tower]
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree).items():
         key, transform = key_fn(path)
         if key in out:
             raise ValueError(f"duplicate key {key!r} (from {'/'.join(path)})")
-        w = transform(np.asarray(leaf, dtype=np.float32))
-        out[key] = torch.from_numpy(np.ascontiguousarray(w))
+        w = np.asarray(leaf)
+        w = transform(w if w.dtype == np.int8 else w.astype(np.float32))
+        out[key] = torch.tensor(np.ascontiguousarray(w))
     return out
 
 

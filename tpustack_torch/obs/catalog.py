@@ -168,6 +168,70 @@ CATALOG: Tuple[MetricSpec, ...] = (
     MetricSpec("tpustack_process_start_time_seconds", "gauge",
                "Unix time the server process installed its device gauges.",
                unit="seconds"),
+
+    # ---- tenant cost accounting (obs.accounting; the tenant label is
+    # BOUNDED: the first TPUSTACK_TENANT_CARDINALITY distinct tenants plus
+    # an 'other' overflow bucket; written only through the TenantLedger) ----
+    MetricSpec("tpustack_tenant_prompt_tokens_total", "counter",
+               "Prompt tokens prefilled, charged to the requesting tenant "
+               "(X-Tenant-Id header / body tenant field).",
+               ("server", "tenant"), unit="total"),
+    MetricSpec("tpustack_tenant_generated_tokens_total", "counter",
+               "Tokens generated for the tenant's completed requests.",
+               ("server", "tenant"), unit="total"),
+    MetricSpec("tpustack_tenant_chip_seconds_total", "counter",
+               "Device wall seconds attributed to the tenant: each engine "
+               "wave's wall time (the flight recorder's wave_s) split across "
+               "the slots it served; sd charges each fused batch's "
+               "denoise+VAE seconds split across its riders; graph charges "
+               "the finalize fetch per prompt.",
+               ("server", "tenant"), unit="total"),
+    MetricSpec("tpustack_tenant_kv_block_seconds_total", "counter",
+               "Paged-KV residency bill: pool blocks held x seconds held "
+               "(allocation at admission to release at retire), per tenant.",
+               ("tenant",), unit="total"),
+    MetricSpec("tpustack_tenant_queue_seconds_total", "counter",
+               "Admission-queue wall seconds the tenant's requests spent "
+               "waiting (llm slot queue, sd batch window, graph worker "
+               "queue).", ("server", "tenant"), unit="total"),
+    MetricSpec("tpustack_tenant_requests_total", "counter",
+               "Requests finished per tenant, by outcome (ok | shed | "
+               "deadline | error | client_error, excluded from goodput).",
+               ("server", "tenant", "outcome"), unit="total"),
+    MetricSpec("tpustack_tenant_goodput_ratio", "gauge",
+               "Lifetime goodput per tenant: ok / (ok + shed + deadline + "
+               "error).", ("server", "tenant"), unit="ratio"),
+
+    # ---- multi-tenant QoS (serving.qos; priority is interactive|batch.
+    # The bucket gauge's tenant label is bounded by the operator-declared
+    # policy, never client-minted) ----
+    MetricSpec("tpustack_qos_shed_total", "counter",
+               "Requests shed by the priority-aware backpressure wall: "
+               "batch sheds at batch_shed_ratio of TPUSTACK_MAX_QUEUE_"
+               "DEPTH, interactive at the full depth.",
+               ("server", "priority"), unit="total"),
+    MetricSpec("tpustack_qos_preempt_total", "counter",
+               "Engine slots preempted at a wave boundary so a waiting "
+               "interactive request could run; the batch slot parks with "
+               "its paged block refs retained and resumes through the "
+               "prefix warm start.", ("priority",), unit="total"),
+    MetricSpec("tpustack_qos_quota_throttle_total", "counter",
+               "Requests 429'd because the tenant's token bucket (tokens/s "
+               "or chip-seconds/s, TPUSTACK_QOS_POLICY) was in debt; "
+               "Retry-After is that bucket's own refill ETA.",
+               ("server", "priority"), unit="total"),
+    MetricSpec("tpustack_qos_requests_total", "counter",
+               "Work requests finished per priority class, by outcome (the "
+               "tenant outcome taxonomy).", ("server", "priority", "outcome"),
+               unit="total"),
+    MetricSpec("tpustack_qos_queue_wait_seconds", "histogram",
+               "Admission-queue wall time by priority class: llm engine "
+               "queue, sd micro-batch window, graph worker queue.",
+               ("server", "priority"), unit="seconds"),
+    MetricSpec("tpustack_qos_bucket_level_ratio", "gauge",
+               "Live token-bucket balance over burst per policy tenant and "
+               "dimension (tokens|chip_seconds): <= 0 = in debt.",
+               ("tenant", "dimension"), unit="ratio"),
 )
 
 

@@ -15,13 +15,19 @@ The port's counterpart of ``tpustack/obs/http.py``, for
   opens the request's root span (honouring an inbound W3C ``traceparent``,
   so the client's trace id follows the request through the engine; the
   trace id is echoed as ``X-Trace-Id``).  Health, metrics and poll
-  endpoints are traced only when the caller sent a ``traceparent``.
+  endpoints are traced only when the caller sent a ``traceparent``.  It
+  also resolves the request's tenant once (``X-Tenant-Id``, else the JSON
+  body's ``tenant`` field on work endpoints, else
+  ``TPUSTACK_TENANT_DEFAULT``), binds it to ``current_tenant`` and
+  ``req.tenant``, stamps it on the root span, and counts each work
+  request's outcome into the tenant ledger.
 - :func:`handler_class` turns routes and a dispatch function into the
   ``BaseHTTPRequestHandler`` a server binds.
-- :func:`add_metrics_route`, :func:`add_debug_trace_routes` and
-  :func:`add_debug_flight_routes` mount ``GET /metrics``,
-  ``GET /debug/traces``, ``GET /debug/traces/{trace_id}`` and
-  ``GET /debug/flight``.
+- :func:`add_metrics_route`, :func:`add_debug_trace_routes`,
+  :func:`add_debug_flight_routes` and :func:`add_debug_tenant_routes`
+  mount ``GET /metrics``, ``GET /debug/traces``,
+  ``GET /debug/traces/{trace_id}``, ``GET /debug/flight`` and
+  ``GET /debug/tenants``.
 
 A handler returns a :data:`Reply` ``(status, headers, body)``, or streams:
 :meth:`Request.start_stream` sends the status and headers (``Connection:
@@ -39,6 +45,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional, Tuple
 
+from tpustack_torch.obs import accounting as obs_accounting
 from tpustack_torch.obs import catalog
 from tpustack_torch.obs import trace as obs_trace
 from tpustack_torch.obs.metrics import CONTENT_TYPE, REGISTRY, Registry
@@ -55,8 +62,15 @@ Reply = Tuple[int, Dict[str, str], bytes]
 UNTRACED_ENDPOINTS = frozenset({
     "/metrics", "/health", "/healthz", "/readyz",
     "/debug/traces", "/debug/traces/{trace_id}", "/debug/flight",
+    "/debug/tenants", "/debug/kvcache",
     "__unmatched__", "/queue", "/history/{prompt_id}",
 })
+
+#: JSON bodies larger than this are not parsed for a ``tenant`` field by
+#: the instrumentation (the handler parses them itself)
+_TENANT_BODY_MAX = 1 << 20
+
+_UNPARSED = object()
 
 #: seconds a streamed write may block on a reader that stopped reading
 STREAM_WRITE_TIMEOUT_S = 60.0
@@ -82,10 +96,21 @@ class Request:
         self.span: Optional[obs_trace.Span] = None
         #: the status sent, once a reply or a stream's head went out
         self.status: Optional[int] = None
+        #: the tenant the instrumentation resolved
+        self.tenant: Optional[str] = None
+        #: the QoS priority class the resilience layer resolved (None: QoS off)
+        self.priority: Optional[str] = None
+        #: an outcome that overrides the status-derived one in the tenant
+        #: accounting (a stream whose 200 went out before it failed)
+        self.tenant_outcome: Optional[str] = None
+        self._json = _UNPARSED
 
     def json(self):
-        """The body as JSON (an empty body is ``{}``); raises ValueError."""
-        return json.loads(self.body or b"{}")
+        """The body as JSON (an empty body is ``{}``); raises ValueError.
+        The instrumentation's parse of a work request is reused."""
+        if self._json is _UNPARSED:
+            return json.loads(self.body or b"{}")
+        return self._json
 
     def arg(self, name: str, default: str = "") -> str:
         return (self.query.get(name) or [default])[0]
@@ -189,19 +214,55 @@ def route(not_found: Reply, error_key: str = "error") -> Callable[[Request], Opt
     return dispatch
 
 
+def _extract_tenant(req: Request, read_body: bool) -> str:
+    """The request's tenant: ``X-Tenant-Id`` first, else (on work endpoints
+    only) a JSON body's ``tenant`` field, else the configured default.  The
+    body of a work request is parsed here even when the header is present
+    (the QoS layer reads its ``priority`` field), and the parse is cached on
+    the request for the handler; bodies above :data:`_TENANT_BODY_MAX` or
+    not ``application/json`` are left to the handler."""
+    header = req.headers.get("X-Tenant-Id")
+    body = None
+    ctype = (req.headers.get("Content-Type") or "").split(";")[0].strip().lower()
+    if (read_body and req.method == "POST" and req.body and ctype == "application/json"
+            and len(req.body) <= _TENANT_BODY_MAX):
+        try:
+            parsed = json.loads(req.body)
+        except (ValueError, UnicodeDecodeError):
+            parsed = None  # the handler answers the malformed body
+        else:
+            req._json = parsed
+        body = parsed if isinstance(parsed, dict) else None
+    return obs_accounting.resolve_tenant(header, body)
+
+
 def instrument(server_name: str, registry: Optional[Registry] = None,
-               tracer: Optional[obs_trace.Tracer] = None):
-    """Wrap a dispatch function with request ids, the root span, the HTTP
-    counters and the latency histogram; returns ``wrap(dispatch)``.
+               tracer: Optional[obs_trace.Tracer] = None,
+               ledger: Optional[obs_accounting.TenantLedger] = None,
+               work_endpoints=(), outcome_accounting: str = "full"):
+    """Wrap a dispatch function with request ids, the tenant, the root
+    span, the HTTP counters and the latency histogram; returns
+    ``wrap(dispatch)``.
 
     Latency covers the handler including a streamed body (an SSE
     completion counts its whole stream: that is the latency its client
     sees).  The root span honours an inbound ``traceparent``, is the
     ``current_span`` of the handler's context and ``req.span``; engine work
     on other threads parents under it through explicitly passed
-    :class:`~tpustack_torch.obs.trace.SpanContext` handles."""
+    :class:`~tpustack_torch.obs.trace.SpanContext` handles.
+
+    Tenant accounting: the tenant is resolved once (:func:`_extract_tenant`),
+    bound to ``current_tenant`` and ``req.tenant`` and set as the root
+    span's ``tenant`` attribute; for ``work_endpoints`` the request's outcome
+    (``req.tenant_outcome``, else the status's) is counted into ``ledger``
+    and, when the resilience layer resolved a priority, into
+    ``tpustack_qos_requests_total``.  ``outcome_accounting="refusals"``
+    counts only the non-``ok`` outcomes here: an accept-and-poll server
+    (graph) counts ok/error/deadline where its worker publishes."""
     m = catalog.build(registry)
     tracer = tracer if tracer is not None else obs_trace.TRACER
+    ledger = ledger if ledger is not None else obs_accounting.for_registry(registry)
+    work_endpoints = frozenset(work_endpoints)
     if tracer is not obs_trace.TRACER or registry is None:
         # capture counting only when tracer and registry pair up: a
         # private-registry server on the PROCESS tracer must not redirect
@@ -216,32 +277,50 @@ def instrument(server_name: str, registry: Optional[Registry] = None,
             rid = req.headers.get("X-Request-Id") or obs_trace.new_request_id()
             rid_token = obs_trace.current_request_id.set(rid)
             req.request_id = rid
+            req.tenant = _extract_tenant(req, read_body=req.endpoint in work_endpoints)
+            tenant_token = obs_accounting.current_tenant.set(req.tenant)
             remote = obs_trace.parse_traceparent(req.headers.get("traceparent"))
             span_token = None
             if remote is not None or req.endpoint not in UNTRACED_ENDPOINTS:
                 req.span = tracer.start_span(
                     f"{req.method} {req.endpoint}", parent=remote,
                     attrs={"server": server_name, "http.method": req.method,
-                           "http.endpoint": req.endpoint, "request_id": rid})
+                           "http.endpoint": req.endpoint, "request_id": rid,
+                           "tenant": req.tenant})
                 span_token = obs_trace.current_span.set(req.span)
             in_flight.labels(server=server_name).inc()
             t0 = time.perf_counter()
+            reply = None
             try:
                 reply = dispatch(req)
-                if reply is not None:
-                    req.send(reply)
             finally:
-                status = req.status if req.status is not None else 500
+                # booked before a reply goes out, so a client that reads
+                # /metrics, /debug/tenants or its trace right after its
+                # response finds the request counted (a stream's body has
+                # already been written by its handler)
+                status = reply[0] if reply is not None else (
+                    req.status if req.status is not None else 500)
                 in_flight.labels(server=server_name).dec()
                 requests_total.labels(server=server_name, endpoint=req.endpoint,
                                       status=str(status)).inc()
                 latency.labels(server=server_name, endpoint=req.endpoint).observe(
                     time.perf_counter() - t0)
+                if req.endpoint in work_endpoints:
+                    outcome = req.tenant_outcome or obs_accounting.outcome_from_status(status)
+                    if outcome_accounting == "full" or outcome != "ok":
+                        ledger.note_outcome(server_name, req.tenant, outcome)
+                        if req.priority is not None:
+                            m["tpustack_qos_requests_total"].labels(
+                                server=server_name, priority=req.priority,
+                                outcome=outcome).inc()
+                obs_accounting.current_tenant.reset(tenant_token)
                 if req.span is not None:
                     obs_trace.current_span.reset(span_token)
                     req.span.set_attribute("http.status", status)
                     req.span.end(status="error" if status >= 500 else "ok")
                 obs_trace.current_request_id.reset(rid_token)
+            if reply is not None:
+                req.send(reply)
 
         return instrumented
 
@@ -328,3 +407,19 @@ def add_debug_flight_routes(routes: Routes, recorder) -> None:
                                                  n=num("n", int)))
 
     routes.add_get("/debug/flight", flight_view)
+
+
+def add_debug_tenant_routes(routes: Routes, ledger=None, qos=None) -> None:
+    """``GET /debug/tenants``: the tenant ledger's exact per-tenant accounts
+    (tokens, chip / KV-block / queue seconds, outcomes, goodput), with a
+    ``qos`` section (live bucket levels and ETAs per policy tenant, the
+    shed / preempt / throttle counters) when a QoS policy is attached."""
+    led = ledger if ledger is not None else obs_accounting.LEDGER
+
+    def tenants_view(req: Request) -> Reply:
+        payload = led.snapshot()
+        payload["qos"] = qos.snapshot() if qos is not None else {"enabled": False}
+        payload["kv_working_set"] = {"enabled": False}
+        return json_reply(200, payload)
+
+    routes.add_get("/debug/tenants", tenants_view)

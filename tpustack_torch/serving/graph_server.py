@@ -12,7 +12,8 @@ either server:
   the output dir)
 - ``GET  /healthz``               -> liveness and worker state (503 only when
   the watchdog fired); ``GET /readyz`` -> readiness (503 while draining)
-- ``GET  /metrics``, ``/debug/traces[/{trace_id}]``, ``/debug/flight``
+- ``GET  /metrics``, ``/debug/traces[/{trace_id}]``, ``/debug/flight``,
+  ``/debug/tenants``
 
 Node set: UNETLoader, CLIPLoader, VAELoader, CLIPTextEncode,
 EmptyHunyuanLatentVideo (``batch_size`` rows seeded ``seed + i``), KSampler,
@@ -34,7 +35,9 @@ kernel, and counted in ``batch_fallbacks``.  Errors surface in
 Env: ``PORT`` (8181), ``WAN_PRESET`` (``wan_1_3b`` | ``tiny``),
 ``WAN_DEVICE`` (default the first GPU; ``cpu`` to run on the CPU),
 ``WAN_MODELS_DIR``, ``WAN_OUTPUT_DIR``, ``WAN_ALLOW_RANDOM`` (1),
-``WAN_TEXT_QUANT`` (none; ``int8`` is not ported and fails at startup),
+``WAN_TEXT_QUANT`` (unset: the weight-only int8 umt5 tower for every preset
+but ``tiny``, as in the JAX server; ``none``/``off`` opts out, ``int8``
+asks for it, anything else fails at startup),
 ``WAN_MAX_BATCH``, ``WAN_BATCH_PIXEL_BUDGET``.  Weights are drawn from seed
 0; checkpoint files under ``WAN_MODELS_DIR`` cannot be loaded yet and
 raise.
@@ -45,8 +48,14 @@ accepted prompt, then the process exits 0), ``TPUSTACK_MAX_QUEUE_DEPTH``
 sheds with 429, a queued prompt past its deadline
 (``TPUSTACK_REQUEST_TIMEOUT_S`` or the body's ``timeout_s``) is answered
 through ``/history`` instead of taking a dispatch, and
-``TPUSTACK_WATCHDOG_S`` flips ``/healthz`` when a dispatch hangs.  Not
-ported: the QoS and ``/profile`` layers of the JAX server.
+``TPUSTACK_WATCHDOG_S`` flips ``/healthz`` when a dispatch hangs.  Tenants
+and QoS, as in the JAX server: a prompt's queue-seconds (submit to worker
+pickup) and its finalize fetch (where the asynchronous dispatch's device
+time lands) are charged to its tenant, each dispatch's flight record
+carries its riders' ``tenants`` split, outcomes are counted where the worker
+publishes, and with QoS on a tenant in quota debt gets 429 with its
+bucket's refill ETA and batch prompts shed before interactive ones.  Not
+ported: the ``/profile`` layer.
 """
 
 from __future__ import annotations
@@ -69,12 +78,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tpustack_torch.obs import accounting as obs_accounting
 from tpustack_torch.obs import catalog as obs_catalog
 from tpustack_torch.obs import device as obs_device
 from tpustack_torch.obs import flight as obs_flight
 from tpustack_torch.obs import http as obs_http
 from tpustack_torch.obs import trace as obs_trace
 from tpustack_torch.obs.http import Request, json_reply
+from tpustack_torch.serving import qos as qos_mod
 from tpustack_torch.serving.resilience import ResilienceManager
 from tpustack_torch.utils import get_logger
 from tpustack_torch.utils.image import array_to_png
@@ -146,6 +157,7 @@ class Frames:
     error: Any = None
     n_frames: Optional[int] = None
     record: Optional[dict] = None
+    tenant: Optional[str] = None  # the submitting tenant (the dispatch's split)
 
     @property
     def frame_count(self) -> int:
@@ -197,18 +209,20 @@ class OutputFile:
 
 
 # --------------------------------------------------------------------- runtime
-def _check_text_quant() -> None:
-    """``WAN_TEXT_QUANT``: none (the default on the port: bf16 umt5-xxl fits
-    beside the DiT on an 80 GB card).  ``int8`` is not ported and raises, so
-    a deployment asking for it fails at startup instead of serving bf16."""
+def _text_quant(preset: str) -> Optional[str]:
+    """``WAN_TEXT_QUANT``, with the JAX server's semantics: unset or empty
+    means the weight-only int8 umt5-xxl tower (5.7 GB instead of 11.4 in
+    bf16) for every preset but ``tiny``; ``none``/``off`` opts out;
+    ``int8`` asks for it; anything else raises.  Called at startup too, so
+    a typo fails the pod at deploy time."""
     raw = os.environ.get("WAN_TEXT_QUANT", "").strip().lower()
-    if raw in ("", "none", "off"):
-        return
-    if raw == "int8":
-        raise NotImplementedError(
-            "WAN_TEXT_QUANT=int8: the weight-only int8 umt5 tower (ops/quant.py) is not "
-            "ported yet; unset it or set none")
-    raise ValueError(f"WAN_TEXT_QUANT={raw!r} unsupported (int8|none)")
+    if raw in ("none", "off"):
+        return None
+    if raw == "":
+        return None if preset == "tiny" else "int8"
+    if raw != "int8":
+        raise ValueError(f"WAN_TEXT_QUANT={raw!r} unsupported (int8|none)")
+    return raw
 
 
 class WanRuntime:
@@ -254,7 +268,7 @@ class WanRuntime:
                 preset = os.environ.get("WAN_PRESET", "wan_1_3b")
                 if preset not in ("wan_1_3b", "tiny"):
                     raise ValueError(f"WAN_PRESET must be wan_1_3b or tiny, got {preset!r}")
-                _check_text_quant()
+                tq = _text_quant(preset)
                 if self._files("diffusion_models") or self._files("text_encoders"):
                     raise NotImplementedError(
                         f"checkpoints under {self.models_dir}: loading .safetensors is not "
@@ -264,7 +278,8 @@ class WanRuntime:
                         f"no Wan checkpoints under {self.models_dir} and WAN_ALLOW_RANDOM=0 "
                         "- refusing to serve random weights")
                 cfg = WanConfig.tiny() if preset == "tiny" else WanConfig.wan_1_3b()
-                log.info("Building Wan pipeline (preset=%s)...", preset)
+                cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, quant=tq))
+                log.info("Building Wan pipeline (preset=%s, text_quant=%s)...", preset, tq)
                 self._pipeline = WanPipeline(cfg, device=os.environ.get("WAN_DEVICE") or None,
                                              seed=0)
             return self._pipeline
@@ -523,6 +538,10 @@ class HistoryEntry:
     status_str: str = "pending"
     messages: List[str] = dataclasses.field(default_factory=list)
     outputs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # set once at submit, read by the worker: the tenant charged and the
+    # QoS priority its outcome is counted under
+    tenant: Optional[str] = None
+    priority: Optional[str] = None
 
     def as_json(self) -> Dict[str, Any]:
         return {"status": {"completed": self.completed, "status_str": self.status_str,
@@ -541,6 +560,11 @@ class GraphServer:
         self.metrics = obs_catalog.build(registry)
         obs_device.install(registry)
         self.tracer = tracer if tracer is not None else obs_trace.TRACER
+        # tenant ledger and the QoS policy (a malformed policy raises here)
+        self.ledger = obs_accounting.for_registry(registry)
+        self.qos = qos_mod.QosPolicy.from_env(registry=registry)
+        if self.qos is not None:
+            self.ledger.add_listener(self.qos.on_ledger_charge)
         self.rt = runtime or WanRuntime()
         self.executor = GraphExecutor(self.rt)
         self.max_batch = max(1, int(os.environ.get("WAN_MAX_BATCH", "4")))
@@ -566,7 +590,8 @@ class GraphServer:
         # from submit-to-publish times (observe_http off)
         self.resilience = ResilienceManager(
             "graph", registry, concurrency=self.max_batch, queue_depth=self._queue.qsize,
-            extra_busy=self._graph_busy, observe_http=False, expected_service_s=60.0)
+            extra_busy=self._graph_busy, observe_http=False, expected_service_s=60.0,
+            qos=self.qos)
         self.flight = obs_flight.register(obs_flight.FlightRecorder(
             "graph", meta={"max_batch": self.max_batch}))
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -632,17 +657,24 @@ class GraphServer:
                     self._running.append(pid)
                     entry = self._history[pid]
                     deadline = self._deadline_at.pop(pid, None)
+                    t_submit = self._t_submit.get(pid)
+                if t_submit is not None:  # queue-seconds: submit to pickup
+                    wait_s = time.monotonic() - t_submit
+                    self.ledger.charge_queue_seconds("graph", entry.tenant, wait_s)
+                    if self.qos is not None:
+                        self.qos.observe_queue_wait("graph", entry.priority, wait_s)
                 if deadline is not None and time.monotonic() > deadline:
                     # expired while queued: refuse to start it (its device
                     # work would be wasted) and publish the verdict
                     self.resilience.note_deadline("queued")
                     self._publish_error(pid, entry, "DeadlineExceeded: request deadline "
-                                        "exceeded (phase=queued)")
+                                        "exceeded (phase=queued)", outcome="deadline")
                     continue
                 specs: List[Tuple[SampleSpec, Frames]] = []
 
-                def hook(spec, specs=specs):
-                    fr = Frames(n_frames=self.rt.pipeline().pixel_frame_count(spec.latent.frames))
+                def hook(spec, specs=specs, tenant=entry.tenant):
+                    fr = Frames(n_frames=self.rt.pipeline().pixel_frame_count(spec.latent.frames),
+                                tenant=tenant)
                     specs.append((spec, fr))
                     return fr
 
@@ -731,10 +763,15 @@ class GraphServer:
         rec = dict(pipe.last_run, dispatch_s=time.perf_counter() - t0,
                    dispatched_at=time.perf_counter())
         self.dispatch_log.append(rec)
+        tenants: Dict[str, int] = {}
+        for _, fr in members:
+            if fr.tenant is not None:
+                tenants[fr.tenant] = tenants.get(fr.tenant, 0) + 1
         self.flight.record("dispatch", batch=len(members), width=width, height=height,
                            frames=frames_n, steps=steps, sampler=sampler,
                            dispatch_s=round(rec["dispatch_s"], 6),
-                           queue_depth=self._queue.qsize())
+                           queue_depth=self._queue.qsize(), **({"tenants": tenants}
+                                                               if tenants else {}))
         self.metrics["tpustack_request_phase_latency_seconds"].labels(
             server="graph", phase="dispatch").observe(rec["dispatch_s"])
         for i, (_, fr) in enumerate(members):
@@ -742,8 +779,19 @@ class GraphServer:
         # a dispatch boundary: the fault injector's mid-request SIGTERM point
         self.resilience.progress("wave")
 
-    def _publish_error(self, pid: str, entry: HistoryEntry, message: str) -> None:
+    def _note_outcome(self, entry: HistoryEntry, outcome: str) -> None:
+        """A prompt's tenant and per-priority outcome, counted where the
+        worker publishes or refuses it (the ``/prompt`` 200 said nothing
+        about how the work fared)."""
+        self.ledger.note_outcome("graph", entry.tenant, outcome)
+        if self.qos is not None and entry.priority is not None:
+            self.metrics["tpustack_qos_requests_total"].labels(
+                server="graph", priority=entry.priority, outcome=outcome).inc()
+
+    def _publish_error(self, pid: str, entry: HistoryEntry, message: str,
+                       outcome: str = "error") -> None:
         self.metrics["tpustack_graph_prompts_total"].labels(status="error").inc()
+        self._note_outcome(entry, outcome)
         with self._lock:
             entry.status_str = "error"
             entry.messages.append(message)
@@ -769,6 +817,9 @@ class GraphServer:
         finalize_s = time.perf_counter() - t_fin
         self.flight.record("finalize", prompt_id=pid, status="success",
                            finalize_s=round(finalize_s, 6))
+        # the asynchronous dispatch's device time lands in this fetch
+        self.ledger.charge_chip_seconds("graph", entry.tenant, finalize_s)
+        self._note_outcome(entry, "ok")
         self.metrics["tpustack_request_phase_latency_seconds"].labels(
             server="graph", phase="finalize").observe(finalize_s)
         self.metrics["tpustack_graph_prompts_total"].labels(status="success").inc()
@@ -804,7 +855,7 @@ class GraphServer:
     def submit(self, req: Request):
         rejected = self.metrics["tpustack_graph_prompts_total"].labels(status="rejected")
         try:
-            data = json.loads(req.body or b"null")
+            data = req.json() if req.body else None  # the instrumentation's parse
         except (ValueError, UnicodeDecodeError):
             rejected.inc()
             return json_reply(400, {"error": "invalid JSON"})
@@ -825,7 +876,9 @@ class GraphServer:
         parent = obs_trace.current_span.get()
         with self._lock:
             self._history[pid] = HistoryEntry(prompt_id=pid,
-                                              client_id=str(data.get("client_id", "")))
+                                              client_id=str(data.get("client_id", "")),
+                                              tenant=obs_accounting.current_tenant.get(),
+                                              priority=req.priority)
             self._pending[pid] = graph
             if parent is not None:
                 # ended at publish, so the client's trace covers the
@@ -886,7 +939,12 @@ class GraphServer:
         obs_http.add_metrics_route(routes, self._registry)
         obs_http.add_debug_trace_routes(routes, self.tracer)
         obs_http.add_debug_flight_routes(routes, self.flight)
-        dispatch = obs_http.instrument("graph", self._registry, self.tracer)(
+        obs_http.add_debug_tenant_routes(routes, self.ledger, qos=self.qos)
+        # accept-and-poll: ok/error/deadline are counted where the worker
+        # publishes; shed and rejected requests never reach it
+        dispatch = obs_http.instrument("graph", self._registry, self.tracer, ledger=self.ledger,
+                                       work_endpoints=("/prompt",),
+                                       outcome_accounting="refusals")(
             self.resilience.middleware(("/prompt",))(
                 obs_http.route(json_reply(404, {"error": "not found"}))))
         return obs_http.handler_class(routes, dispatch, max_body=4 << 20)
@@ -909,7 +967,7 @@ class GraphServer:
 
 
 def main() -> None:
-    _check_text_quant()  # fail fast on an unported or misspelt setting
+    _text_quant(os.environ.get("WAN_PRESET", "wan_1_3b"))  # fail fast on a typo
     server = GraphServer()
     port = server.start(port=int(os.environ.get("PORT", "8181")))
     # SIGTERM -> drain: /prompt refuses, the worker publishes every accepted

@@ -10,7 +10,8 @@ server's), served by ``http.server.ThreadingHTTPServer``:
 - ``GET /props`` -> model, ctx, slots, paged pool and prefix-cache stats,
   speculative drafted/accepted, ``decode_kernel``
 - ``GET /metrics`` (Prometheus text), ``GET /debug/traces``,
-  ``GET /debug/traces/{trace_id}``, ``GET /debug/flight``
+  ``GET /debug/traces/{trace_id}``, ``GET /debug/flight``,
+  ``GET /debug/tenants`` (the tenant ledger and the QoS buckets)
 - ``POST /completion`` -> ``{content, model, stop, stopped_eos,
   stopped_limit, tokens_evaluated, tokens_predicted, timings}``, or with
   ``"stream": true`` server-sent events of ``{content, stop: false}``
@@ -39,8 +40,19 @@ retired and its blocks freed), SIGTERM drains (in-flight completions
 finish, new work gets 503, the process exits 0), ``TPUSTACK_WATCHDOG_S``
 flips liveness on a hung dispatch, and ``TPUSTACK_FAULT_*`` inject faults.
 
+Tenants and QoS, as in the JAX server: each request is charged to its
+tenant (``X-Tenant-Id`` or the body's ``tenant``) for tokens, chip-seconds
+(from the engine's flight records), KV-block-seconds and queue-seconds.
+With QoS on (``TPUSTACK_QOS``, the default; ``TPUSTACK_QOS_POLICY`` sets
+per-tenant priorities and token-bucket quotas) a tenant in quota debt gets
+429 with its bucket's refill ETA, batch requests shed first under queue
+pressure, the queue hands interactive requests to the engine first (FIFO
+within a class), and the engine parks a batch row at a wave boundary when an
+interactive request waits for a slot.
+
 Env (the JAX server's names): ``LLM_PRESET`` (``qwen25_7b`` | ``llama2_7b``
-| ``tiny``), ``LLM_CTX`` (4096), ``LLM_KV_QUANT`` (``int8``),
+| ``tiny``), ``LLM_CTX`` (4096), ``LLM_QUANT`` (``int8``: weight-only
+int8, ``ops.quant``), ``LLM_KV_QUANT`` (``int8``),
 ``LLM_MAX_BATCH`` (8 slots), ``LLM_CHUNK`` / ``LLM_ENGINE_CHUNK`` (engine
 chunk ``min(LLM_CHUNK, 16)``), ``TPUSTACK_KV_BLOCK``,
 ``TPUSTACK_KV_POOL_BLOCKS``, ``TPUSTACK_PREFIX_CACHE``,
@@ -52,9 +64,9 @@ are drawn from seed 0, as the JAX server's are without a checkpoint.
 
 Not ported yet, and refused rather than served some other way:
 ``LLM_MAX_BATCH < 2`` (the dense solo engine), ``TPUSTACK_PAGED_KV=0`` (the
-dense engine), ``LLM_TP``, ``LLM_QUANT``, ``MODEL_DIR``,
-``LLM_TOKENIZER_DIR`` and ``TPUSTACK_SPEC_DRAFT`` (startup errors);
-``POST /profile``, ``/debug/tenants`` and ``/debug/kvcache`` answer 404.
+dense engine), ``LLM_TP``, ``MODEL_DIR``, ``LLM_TOKENIZER_DIR`` and
+``TPUSTACK_SPEC_DRAFT`` (startup errors); ``POST /profile`` and
+``/debug/kvcache`` answer 404.
 """
 
 from __future__ import annotations
@@ -74,12 +86,14 @@ from typing import List, Optional
 
 import torch
 
+from tpustack_torch.obs import accounting as obs_accounting
 from tpustack_torch.obs import catalog as obs_catalog
 from tpustack_torch.obs import device as obs_device
 from tpustack_torch.obs import flight as obs_flight
 from tpustack_torch.obs import http as obs_http
 from tpustack_torch.obs import trace as obs_trace
 from tpustack_torch.obs.http import Request, json_reply
+from tpustack_torch.serving import qos as qos_mod
 from tpustack_torch.serving.resilience import (DeadlineExceeded, InjectedDeviceError,
                                                ResilienceManager, shed_headers)
 from tpustack_torch.utils import get_logger, knobs
@@ -150,8 +164,6 @@ def _build_generator():
 
     if os.environ.get("MODEL_DIR"):
         raise _not_ported("MODEL_DIR (loading a safetensors checkpoint)")
-    if os.environ.get("LLM_QUANT"):
-        raise _not_ported("LLM_QUANT (weight-only int8)")
     if _env_int("LLM_TP", 0) > 1:
         raise _not_ported("LLM_TP (tensor-parallel serving)")
     preset = os.environ.get("LLM_PRESET", "qwen25_7b") or "qwen25_7b"
@@ -163,10 +175,13 @@ def _build_generator():
         dtype = torch.bfloat16
     else:
         raise ValueError(f"LLM_PRESET must be qwen25_7b, llama2_7b or tiny, got {preset!r}")
+    quant = os.environ.get("LLM_QUANT", "").lower() or None
+    if quant not in (None, "int8"):
+        raise ValueError(f"LLM_QUANT={quant!r} unsupported (want int8)")
     kv_quant = os.environ.get("LLM_KV_QUANT", "").lower() or None
     if kv_quant not in (None, "int8"):
         raise ValueError(f"LLM_KV_QUANT={kv_quant!r} unsupported (want int8)")
-    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    cfg = dataclasses.replace(cfg, quant=quant, kv_quant=kv_quant)
     gen = Generator(cfg, dtype=dtype, seed=0, device=os.environ.get("LLM_DEVICE") or None)
     return gen, load_text_tokenizer(cfg.vocab_size), preset
 
@@ -264,7 +279,8 @@ class _Pending:
 
     __slots__ = ("ids", "n_predict", "sample", "seed", "prefix", "kv_blocks",
                  "on_prefill_blocks", "speculative", "phase", "done", "result", "error",
-                 "cancel", "stream", "span_ctx", "queue_span")
+                 "cancel", "stream", "span_ctx", "queue_span", "tenant", "priority",
+                 "t_enqueue", "t_kv_alloc")
 
     def __init__(self, ids, n_predict, sample, seed, prefix, kv_blocks, on_prefill_blocks,
                  speculative, stream=None):
@@ -282,6 +298,13 @@ class _Pending:
         self.stream: Optional[queue.Queue] = stream
         self.span_ctx = None
         self.queue_span = None
+        # tenant and QoS priority (set at enqueue from the handler's
+        # context), the enqueue time (queue-seconds) and the time the pool
+        # blocks were allocated (KV-block-seconds)
+        self.tenant: Optional[str] = None
+        self.priority: Optional[str] = None
+        self.t_enqueue: Optional[float] = None
+        self.t_kv_alloc: Optional[float] = None
 
 
 class LLMServer:
@@ -298,6 +321,14 @@ class LLMServer:
         self.metrics = obs_catalog.build(registry)
         obs_device.install(registry)
         self.tracer = tracer if tracer is not None else obs_trace.TRACER
+        # tenant ledger: process-wide on the default registry, private with
+        # an injected one (the tracer's isolation contract)
+        self.ledger = obs_accounting.for_registry(registry)
+        # multi-tenant QoS; None (TPUSTACK_QOS=0) keeps the serving path
+        # QoS-free.  A malformed TPUSTACK_QOS_POLICY raises here, at startup
+        self.qos = qos_mod.QosPolicy.from_env(registry=registry)
+        if self.qos is not None:
+            self.ledger.add_listener(self.qos.on_ledger_charge)
         if generator is None:
             generator, tokenizer, model_name = _build_generator()
         self.gen, self.tok, self.model_name = generator, tokenizer, model_name
@@ -332,16 +363,16 @@ class LLMServer:
         # the TPUSTACK_FAULT_* hooks; queue depth is what waits for a slot
         self.resilience = ResilienceManager("llm", registry, concurrency=self.max_batch,
                                             queue_depth=lambda: len(self._queue),
-                                            expected_service_s=2.0)
+                                            expected_service_s=2.0, qos=self.qos)
         self.flight = obs_flight.register(obs_flight.FlightRecorder("llm", meta={
             "model": model_name, "slots": self.max_batch, "chunk": self.engine_chunk,
             "paged_kv": True, "decode_kernel": self.decode_kernel,
             "spec_tokens": self.spec_cfg.tokens if self.spec_cfg is not None else 0}))
         self._paged_gauges()
-        log.info("decode attention: %s (KV block %d, %d slots, speculation %d, %s)",
-                 self.decode_kernel, self.paged.block, self.max_batch,
-                 self.spec_cfg.tokens if self.spec_cfg is not None else 0,
-                 self.gen.cache_dtype)
+        log.info("decode attention: %s (KV block %d, %d slots, speculation %d, %s, "
+                 "weights %s, %.2f GB)", self.decode_kernel, self.paged.block,
+                 self.max_batch, self.spec_cfg.tokens if self.spec_cfg is not None else 0,
+                 self.gen.cache_dtype, self.gen.cfg.quant or "float", self.gen.weight_bytes / 1e9)
         self._engine_thread = threading.Thread(target=self._engine_loop, name="llm-engine",
                                                daemon=True)
         self._engine_thread.start()
@@ -378,6 +409,10 @@ class LLMServer:
             ids += list(r.prefix[1])
         r.kv_blocks, r.prefix = None, None
         if ids:
+            if r.tenant is not None and r.t_kv_alloc:
+                # died queued, but its blocks were resident all along
+                self.ledger.charge_kv_block_seconds(
+                    r.tenant, len(ids) * max(0.0, time.time() - r.t_kv_alloc))
             self.paged.pool.decref(ids)
             self._paged_gauges()
 
@@ -408,7 +443,41 @@ class LLMServer:
                            on_tokens=on_tokens if r.stream is not None else None,
                            on_done=on_done, cancelled=r.cancel.is_set, seed=r.seed,
                            prefix=r.prefix, span_ctx=r.span_ctx, kv_blocks=r.kv_blocks,
-                           on_prefill_blocks=r.on_prefill_blocks, speculative=r.speculative)
+                           on_prefill_blocks=r.on_prefill_blocks, speculative=r.speculative,
+                           tenant=r.tenant, t_kv_alloc=r.t_kv_alloc, priority=r.priority)
+
+    # ------------------------------------------------------ QoS queue helpers
+    def _pop_queued(self) -> _Pending:
+        """(engine thread) The next queued request: the first interactive
+        one when QoS is on (FIFO within each class), else the FIFO head.
+        An index scan, since handler threads append concurrently."""
+        if self.qos is not None:
+            try:
+                for idx in range(len(self._queue)):
+                    if self._queue[idx].priority == qos_mod.INTERACTIVE:
+                        r = self._queue[idx]
+                        del self._queue[idx]
+                        return r
+            except IndexError:
+                pass  # racing an append: fall through to FIFO
+        return self._queue.popleft()
+
+    def _interactive_waiting(self) -> bool:
+        """(engine thread) The engine's preemption hint: an interactive
+        request waits in the queue.  Racy by design: a stale answer costs
+        one spurious park or one wave of extra wait, never correctness."""
+        try:
+            for idx in range(len(self._queue)):
+                r = self._queue[idx]
+                if r.priority == qos_mod.INTERACTIVE and not r.cancel.is_set():
+                    return True
+        except IndexError:
+            pass
+        return False
+
+    def _note_preempt(self, tenant) -> None:
+        """(engine thread) A batch row was parked for an interactive one."""
+        self.qos.note_preempt(qos_mod.BATCH)
 
     def _fail(self, r: _Pending, exc: BaseException) -> None:
         if r.queue_span is not None:
@@ -434,8 +503,13 @@ class LLMServer:
 
             def feed():
                 while self._queue:
-                    r = self._queue.popleft()
+                    r = self._pop_queued()
                     self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
+                    if r.t_enqueue:  # cancelled and admitted alike waited
+                        wait_s = time.time() - r.t_enqueue
+                        self.ledger.charge_queue_seconds("llm", r.tenant, wait_s)
+                        if self.qos is not None:
+                            self.qos.observe_queue_wait("llm", r.priority, wait_s)
                     if r.cancel.is_set():  # died queued: its waiter is gone
                         if r.queue_span is not None:
                             r.queue_span.set_attribute("cancelled", True)
@@ -458,7 +532,14 @@ class LLMServer:
                                       on_spec=self._note_spec,
                                       on_progress=self.resilience.progress,
                                       tracer=self.tracer, flight=self.flight,
-                                      queue_depth=lambda: len(self._queue))
+                                      queue_depth=lambda: len(self._queue),
+                                      ledger=self.ledger,
+                                      # QoS scheduling: None with QoS off keeps the
+                                      # engine preemption-free
+                                      preempt_hint=(self._interactive_waiting
+                                                    if self.qos is not None else None),
+                                      on_preempt=(self._note_preempt
+                                                  if self.qos is not None else None))
             self._engine = engine
             try:
                 stats = engine.run(feed)
@@ -556,10 +637,12 @@ class LLMServer:
         if len(ids) >= self.gen.cfg.max_seq:
             raise BadRequest(f"prompt ({len(ids)} tokens) exceeds ctx {self.gen.cfg.max_seq}")
         prefix, kv_blocks, on_insert = self._paged_admit(ids, n_predict, cache_prompt)
-        return _Pending(ids, n_predict, SampleConfig(temperature=temperature, top_k=top_k,
-                                                     greedy=temperature <= 0),
-                        seed, prefix, kv_blocks, on_insert, speculative,
-                        stream=queue.Queue() if stream else None)
+        r = _Pending(ids, n_predict, SampleConfig(temperature=temperature, top_k=top_k,
+                                                  greedy=temperature <= 0),
+                     seed, prefix, kv_blocks, on_insert, speculative,
+                     stream=queue.Queue() if stream else None)
+        r.t_kv_alloc = time.time()
+        return r
 
     def _enqueue(self, r: _Pending) -> None:
         # engine threads do not see the handler's contextvars: the root
@@ -568,6 +651,9 @@ class LLMServer:
         if span is not None:
             r.span_ctx = span.context
             r.queue_span = self.tracer.start_span("queue_wait", parent=span)
+        r.tenant = obs_accounting.current_tenant.get()
+        r.priority = qos_mod.current_priority.get() if self.qos is not None else None
+        r.t_enqueue = time.time()
         self._queue.append(r)
         self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
         self._wake.set()
@@ -608,6 +694,11 @@ class LLMServer:
         m["tpustack_llm_prompt_tokens_total"].inc(stats.get("prompt_tokens", 0))
         m["tpustack_llm_generated_tokens_total"].inc(stats.get("generated_tokens", 0))
         m["tpustack_llm_prompt_length_tokens"].observe(n_prompt)
+        # one token charge per completed request, in the handler's context
+        # (the instrumentation's tenant contextvar is live here)
+        self.ledger.charge_tokens("llm", obs_accounting.current_tenant.get(),
+                                  prompt=stats.get("prompt_tokens", 0),
+                                  generated=stats.get("generated_tokens", 0))
         prefill, decode = stats.get("prefill_s", 0.0), stats.get("decode_s", 0.0)
         detok = stats.get("detokenize_s", 0.0)
         tr = obs_trace.Trace()
@@ -691,6 +782,8 @@ class LLMServer:
             "n_ctx": self.gen.cfg.max_seq,
             "backend": f"torch/{self.gen.device.type}",
             "slots": self.max_batch,
+            "quant": self.gen.cfg.quant,
+            "kv_quant": self.gen.cfg.kv_quant,
             "decode_kernel": kernel,
             "paged_kv": dict(rt.stats(), enabled=True, dense_fallback=False, kernel=kernel),
             "prefix_cache": rt.cache.stats() if rt.cache is not None else {"enabled": False},
@@ -879,6 +972,7 @@ class LLMServer:
                 if delta:
                     send_text(delta)
             if r.error is not None:  # the stream already started: a final error event
+                req.tenant_outcome = "error"
                 send_error(str(r.error))
                 return None
             tail = detok.flush()
@@ -897,6 +991,7 @@ class LLMServer:
                      time.perf_counter() - t0)
         except DeadlineExceeded as e:
             r.cancel.set()
+            req.tenant_outcome = "deadline"  # the 200 already went out
             self.resilience.note_deadline(e.phase)
             send_error(str(e))
         except OSError:
@@ -921,7 +1016,9 @@ class LLMServer:
         obs_http.add_metrics_route(routes, self._registry)
         obs_http.add_debug_trace_routes(routes, self.tracer)
         obs_http.add_debug_flight_routes(routes, self.flight)
-        dispatch = obs_http.instrument("llm", self._registry, self.tracer)(
+        obs_http.add_debug_tenant_routes(routes, self.ledger, qos=self.qos)
+        dispatch = obs_http.instrument("llm", self._registry, self.tracer, ledger=self.ledger,
+                                       work_endpoints=WORK_ENDPOINTS)(
             self.resilience.middleware(WORK_ENDPOINTS)(
                 obs_http.route(json_reply(404, {"error": "not found"}))))
         return obs_http.handler_class(routes, dispatch)

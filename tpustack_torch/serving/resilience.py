@@ -57,9 +57,13 @@ fetch, batch completion, prompt dispatch).  Points both feed the watchdog
 
 The JAX layer's aiohttp middleware becomes :meth:`ResilienceManager.middleware`,
 a wrapper around the servers' ``http.server`` dispatch (the request and
-reply types of :mod:`tpustack_torch.obs.http`); the multi-tenant QoS policy
-(``tpustack/serving/qos.py``) is not ported, so admission is the QoS-free
-path of the JAX layer.
+reply types of :mod:`tpustack_torch.obs.http`).  With a multi-tenant QoS
+policy (:class:`~tpustack_torch.serving.qos.QosPolicy`, on unless
+``TPUSTACK_QOS=0``) the middleware resolves each work request's priority
+class, a tenant in quota debt gets 429 with its own bucket's refill ETA as
+``Retry-After`` (``X-Shed-Reason: quota``), and batch requests shed at
+``batch_shed_ratio`` of ``TPUSTACK_MAX_QUEUE_DEPTH``, before interactive
+ones; with ``qos=None`` admission is the QoS-free path, unchanged.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 from tpustack_torch.obs import catalog as obs_catalog
 from tpustack_torch.obs.http import Reply, Request, json_reply
+from tpustack_torch.serving import qos as qos_mod
 from tpustack_torch.utils import get_logger, knobs
 
 log = get_logger("serving.resilience")
@@ -214,8 +219,11 @@ class ResilienceManager:
                  on_exit: Optional[Callable[[int], None]] = None,
                  env=None, fault: Optional[FaultInjector] = None,
                  observe_http: bool = True,
-                 expected_service_s: float = 1.0):
+                 expected_service_s: float = 1.0, qos=None):
         self.server = server
+        # the QoS policy (serving.qos.QosPolicy): priority- and quota-aware
+        # admission; None (TPUSTACK_QOS=0) keeps admission QoS-free
+        self.qos = qos
         # accept-and-poll servers (graph /prompt answers in ~1ms while the
         # work runs minutes) pass observe_http=False and feed real
         # completion times via observe_service_time themselves — otherwise
@@ -501,9 +509,13 @@ class ResilienceManager:
         if span is not None:
             span.add_event("shed", reason=reason, retry_after_s=retry_after)
 
-    def admission_check(self) -> Optional[Reply]:
-        """None to admit, or a ready 503 (draining) / 429 (backpressure)
-        reply carrying ``Retry-After``."""
+    def admission_check(self, priority: Optional[str] = None,
+                        tenant: Optional[str] = None) -> Optional[Reply]:
+        """None to admit, or a ready 503 (draining) / 429 (quota debt or
+        backpressure) reply carrying ``Retry-After``.  With QoS, a tenant in
+        debt gets its own bucket's refill ETA, and ``priority`` picks the
+        backpressure wall: batch sheds at ``batch_shed_ratio`` of the
+        configured depth, interactive at the full depth."""
         if self.draining:
             self.metrics["tpustack_requests_shed_total"].labels(
                 server=self.server, reason="draining").inc()
@@ -511,14 +523,51 @@ class ResilienceManager:
             self._shed_event("draining", ra)
             return json_reply(503, {"error": "server draining (shutting down)"},
                               shed_headers("draining", ra))
-        if self.max_queue_depth and self.queue_depth() >= self.max_queue_depth:
+        if self.qos is not None and tenant is not None:
+            eta = self.qos.quota_check(tenant)
+            if eta is not None:
+                self.metrics["tpustack_requests_shed_total"].labels(
+                    server=self.server, reason="quota").inc()
+                self.qos.note_quota_throttle(self.server, priority)
+                ra = max(1, math.ceil(eta))
+                self.metrics["tpustack_retry_after_seconds"].labels(
+                    server=self.server).set(ra)
+                self._shed_event("quota", ra)
+                return json_reply(429, {"error": f"tenant {tenant!r} over quota",
+                                        "reason": "quota"}, shed_headers("quota", ra))
+        depth_limit = self.max_queue_depth
+        if depth_limit and self.qos is not None and priority == "batch":
+            # batch hits the wall earlier: under saturation the 429s land
+            # on batch while interactive still has queue headroom
+            depth_limit = self.qos.batch_shed_depth(self.max_queue_depth)
+        if depth_limit and self.queue_depth() >= depth_limit:
             self.metrics["tpustack_requests_shed_total"].labels(
                 server=self.server, reason="backpressure").inc()
+            if self.qos is not None:
+                self.qos.note_shed(self.server, priority)
             ra = self.retry_after_s()
             self._shed_event("backpressure", ra)
             return json_reply(429, {"error": "queue full, retry later"},
                               shed_headers("queue_depth", ra))
         return None
+
+    def _resolve_priority(self, req: Request) -> Optional[str]:
+        """The request's priority class (``X-Priority`` > body ``priority``
+        from the instrumentation's cached parse > the tenant's policy
+        default), set on ``req`` and its root span; None without QoS."""
+        if self.qos is None:
+            return None
+        try:
+            body = req.json()
+        except (ValueError, UnicodeDecodeError):
+            body = None  # the handler answers the malformed body
+        priority = self.qos.resolve_priority(
+            req.headers.get("X-Priority"),
+            body.get("priority") if isinstance(body, dict) else None, req.tenant)
+        req.priority = priority
+        if req.span is not None:
+            req.span.set_attribute("priority", priority)
+        return priority
 
     def middleware(self, work_paths) -> Callable:
         """Wrap a dispatch function so POSTs to ``work_paths`` are gated:
@@ -531,22 +580,31 @@ class ResilienceManager:
             def gated(req: Request) -> Optional[Reply]:
                 if req.method != "POST" or req.endpoint not in work_paths:
                     return dispatch(req)
-                shed = self.admission_check()
-                if shed is not None:
-                    return shed
-                self.beat()  # arriving work arms the watchdog from "now"
-                with self._lock:
-                    self._inflight += 1
-                t0 = time.perf_counter()
+                priority = self._resolve_priority(req)
+                # carried like the tenant: contextvar in the handler's
+                # context, explicit fields across thread boundaries
+                prio_token = (qos_mod.current_priority.set(priority)
+                              if priority is not None else None)
                 try:
-                    reply = dispatch(req)
-                    status = reply[0] if reply is not None else (req.status or 500)
-                    if status < 400 and self._observe_http:
-                        self.observe_service_time(time.perf_counter() - t0)
-                    return reply
-                finally:
+                    shed = self.admission_check(priority=priority, tenant=req.tenant)
+                    if shed is not None:
+                        return shed
+                    self.beat()  # arriving work arms the watchdog from "now"
                     with self._lock:
-                        self._inflight -= 1
+                        self._inflight += 1
+                    t0 = time.perf_counter()
+                    try:
+                        reply = dispatch(req)
+                        status = reply[0] if reply is not None else (req.status or 500)
+                        if status < 400 and self._observe_http:
+                            self.observe_service_time(time.perf_counter() - t0)
+                        return reply
+                    finally:
+                        with self._lock:
+                            self._inflight -= 1
+                finally:
+                    if prio_token is not None:
+                        qos_mod.current_priority.reset(prio_token)
 
             return gated
 

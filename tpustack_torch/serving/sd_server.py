@@ -7,7 +7,8 @@ sd15-api app's), so ``scripts/batch_generate.py`` drives either server:
   ...}``, liveness (503 only when the watchdog fired)
 - ``GET /readyz``    -> readiness (503 + ``X-Shed-Reason: draining`` while
   draining); the Deployment's probe
-- ``GET /metrics``, ``GET /debug/traces[/{trace_id}]``, ``GET /debug/flight``
+- ``GET /metrics``, ``GET /debug/traces[/{trace_id}]``, ``GET /debug/flight``,
+  ``GET /debug/tenants``
 - ``GET /``          -> HTML preview of the last image
 - ``GET /last``      -> last PNG, or 404 before the first image
 - ``POST /generate`` -> PNG + ``X-Gen-Time: <sec>s``; body ``{prompt,
@@ -28,7 +29,11 @@ two as the JAX server's are: eager PyTorch has no compiled signatures whose
 number padding would bound.  The resilience layer (``serving.resilience``)
 is the JAX server's: SIGTERM drains (the running micro-batch finishes, new
 work gets 503, the process exits 0), deadlines, 429 backpressure, the
-watchdog and the ``TPUSTACK_FAULT_*`` knobs.
+watchdog and the ``TPUSTACK_FAULT_*`` knobs.  Tenants and QoS, as in the
+JAX server: each image's queue-seconds and its share of its fused batch's
+denoise+VAE seconds are charged to its tenant, and with QoS on a tenant in
+quota debt gets 429 with its bucket's refill ETA and batch requests shed
+before interactive ones.
 
 Env: ``PORT`` (8000), ``SD15_PRESET`` (``sd15`` | ``tiny``), ``SD15_DEVICE``
 (default the first GPU; ``cpu`` to run on the CPU; no GPU and no such
@@ -52,12 +57,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tpustack_torch.obs import accounting as obs_accounting
 from tpustack_torch.obs import catalog as obs_catalog
 from tpustack_torch.obs import device as obs_device
 from tpustack_torch.obs import flight as obs_flight
 from tpustack_torch.obs import http as obs_http
 from tpustack_torch.obs import trace as obs_trace
 from tpustack_torch.obs.http import Request, json_reply
+from tpustack_torch.serving import qos as qos_mod
 from tpustack_torch.serving.resilience import (DeadlineExceeded, InjectedDeviceError,
                                                ResilienceManager, shed_headers)
 from tpustack_torch.utils import get_logger
@@ -89,6 +96,11 @@ def parse_request(body: bytes) -> dict:
         data = json.loads(body or b"null")
     except (ValueError, UnicodeDecodeError) as e:
         raise BadRequest(f"body is not JSON: {e}") from e
+    return validate_request(data)
+
+
+def validate_request(data) -> dict:
+    """:func:`parse_request` on an already parsed body."""
     if not isinstance(data, dict):
         raise BadRequest("body must be a JSON object")
     if "prompt" not in data:
@@ -113,6 +125,10 @@ class _Pending:
     negative: str
     seed: Optional[int]
     span_ctx: Optional[obs_trace.SpanContext] = None
+    # tenant and QoS priority, captured in the handler's context: the batch
+    # thread serves many riders, each charged its share
+    tenant: Optional[str] = None
+    priority: Optional[str] = None
     t_enqueue: float = dataclasses.field(default_factory=time.perf_counter)
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
     image: Optional[np.ndarray] = None
@@ -134,6 +150,13 @@ class SDServer:
         self.metrics = obs_catalog.build(registry)
         obs_device.install(registry)
         self.tracer = tracer if tracer is not None else obs_trace.TRACER
+        # tenant ledger (process-wide on the default registry) and the QoS
+        # policy, whose buckets the ledger's measured charges drive; a
+        # malformed TPUSTACK_QOS_POLICY raises here
+        self.ledger = obs_accounting.for_registry(registry)
+        self.qos = qos_mod.QosPolicy.from_env(registry=registry)
+        if self.qos is not None:
+            self.ledger.add_listener(self.qos.on_ledger_charge)
         self.pipe = pipeline if pipeline is not None else self._pipeline_from_env()
         if batch_window_ms is None:
             batch_window_ms = float(os.environ.get("SD15_BATCH_WINDOW_MS", "15"))
@@ -153,7 +176,7 @@ class SDServer:
         # fault hooks; queue depth is the manager's default (work requests
         # in flight beyond one batch)
         self.resilience = ResilienceManager("sd", registry, concurrency=self.max_batch,
-                                            expected_service_s=5.0)
+                                            expected_service_s=5.0, qos=self.qos)
         self.flight = obs_flight.register(obs_flight.FlightRecorder(
             "sd", meta={"max_batch": self.max_batch}))
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -183,7 +206,9 @@ class SDServer:
         request was still in its group's window (it leaves the group, so
         the batch never pays for it), ``denoise`` once dispatched."""
         span = obs_trace.current_span.get()
-        p = _Pending(prompt, negative, seed, span_ctx=span.context if span else None)
+        p = _Pending(prompt, negative, seed, span_ctx=span.context if span else None,
+                     tenant=obs_accounting.current_tenant.get(),
+                     priority=qos_mod.current_priority.get() if self.qos is not None else None)
         with self._cv:
             group = self._pending.get(key)
             if group is None:
@@ -253,12 +278,25 @@ class SDServer:
                 r.done.set()
             return
         self.metrics["tpustack_sd_batch_size_images"].observe(len(batch))
-        self.flight.record("batch", batch=len(batch), steps=steps, width=width, height=height,
-                           denoise_vae_s=round(secs, 6))
+        # the riders' tenant split rides the record and the chip-seconds
+        # charge reads it back: /debug/flight and /debug/tenants agree
+        tenants: Dict[str, int] = {}
+        for r in batch:
+            if r.tenant is not None:
+                tenants[r.tenant] = tenants.get(r.tenant, 0) + 1
+        rec = dict(batch=len(batch), steps=steps, width=width, height=height,
+                   denoise_vae_s=round(secs, 6))
+        if tenants:
+            rec["tenants"] = tenants
+        self.flight.record("batch", **rec)
+        self.ledger.charge_flight_wave("sd", rec, seconds_key="denoise_vae_s")
         phases = self.metrics["tpustack_request_phase_latency_seconds"]
         for r, img in zip(batch, imgs):
-            phases.labels(server="sd", phase="queue_wait").observe(
-                max(0.0, t_start - r.t_enqueue))
+            wait_s = max(0.0, t_start - r.t_enqueue)
+            phases.labels(server="sd", phase="queue_wait").observe(wait_s)
+            self.ledger.charge_queue_seconds("sd", r.tenant, wait_s)
+            if self.qos is not None:
+                self.qos.observe_queue_wait("sd", r.priority, wait_s)
             phases.labels(server="sd", phase="denoise_vae").observe(secs)
             if r.span_ctx is not None:  # each rider's share of the fused batch
                 self.tracer.add_span("denoise_vae", r.span_ctx, t_unix, secs,
@@ -272,8 +310,12 @@ class SDServer:
     def generate(self, req: Request):
         """``POST /generate`` -> (status, headers, body bytes)."""
         try:
-            body = parse_request(req.body)
-            timeout = json.loads(req.body).get("timeout_s")  # the body parsed above
+            try:
+                data = req.json() if req.body else None  # the instrumentation's parse
+            except (ValueError, UnicodeDecodeError) as e:
+                raise BadRequest(f"body is not JSON: {e}") from e
+            body = validate_request(data)
+            timeout = data.get("timeout_s")
             if timeout is not None and (isinstance(timeout, bool)
                                         or not isinstance(timeout, (int, float))):
                 raise BadRequest("timeout_s: expected a number")
@@ -360,7 +402,9 @@ class SDServer:
         obs_http.add_metrics_route(routes, self._registry)
         obs_http.add_debug_trace_routes(routes, self.tracer)
         obs_http.add_debug_flight_routes(routes, self.flight)
-        dispatch = obs_http.instrument("sd", self._registry, self.tracer)(
+        obs_http.add_debug_tenant_routes(routes, self.ledger, qos=self.qos)
+        dispatch = obs_http.instrument("sd", self._registry, self.tracer, ledger=self.ledger,
+                                       work_endpoints=("/generate",))(
             self.resilience.middleware(("/generate",))(
                 obs_http.route(json_reply(404, {"detail": "Not Found"}), error_key="detail")))
         return obs_http.handler_class(routes, dispatch, max_body=1 << 20)

@@ -2,14 +2,17 @@
 
 The port's copy of ``tpustack/utils/knobs.py``: the same names, types,
 defaults and parsing, for the knobs of the serving surface (resilience,
-fault injection, tracing, the flight recorder and the admin token).  Every
+fault injection, tracing, the flight recorder, the admin token, tenant
+accounting and multi-tenant QoS).  Every
 knob is declared once in :data:`REGISTRY` and read through the typed
 accessors, which raise on an undeclared name, a wrong type or a value that
 does not parse.  The older port modules read their model and engine knobs
 (``LLM_*``, ``SD15_*``, ``WAN_*``) directly.
 
 Parsing: int/float unset or blank -> default, else ``int()``/``float()``
-with a ``ValueError`` naming the knob; str unset -> default.  Accessors take
+with a ``ValueError`` naming the knob; bool unset or blank -> default, else
+one of ``1/true/yes/on`` or ``0/false/no/off`` (case-insensitive), anything
+else a ``ValueError``; str unset -> default.  Accessors take
 an optional ``env`` mapping (default ``os.environ``) so components built
 with an injected environment (``FaultInjector``, ``Tracer``,
 ``ResilienceManager``) keep to it.
@@ -27,7 +30,7 @@ class Knob:
     """One declared environment knob."""
 
     name: str
-    type: type  # str | int | float
+    type: type  # str | int | float | bool
     default: object
     doc: str
 
@@ -38,7 +41,7 @@ REGISTRY: Dict[str, Knob] = {}
 def _declare(name: str, type_: type, default, doc: str) -> None:
     if name in REGISTRY:
         raise ValueError(f"duplicate knob declaration {name}")
-    if not isinstance(default, type_):
+    if not isinstance(default, type_) or (type_ is int and isinstance(default, bool)):
         raise TypeError(f"{name}: default {default!r} is not {type_.__name__}")
     REGISTRY[name] = Knob(name, type_, default, doc)
 
@@ -90,6 +93,24 @@ _declare("TPUSTACK_FLIGHT_DUMP_DIR", str, "/tmp/tpustack-flight",
          "Directory for flight-recorder JSON dumps (watchdog fire, SIGTERM "
          "drain, fatal engine error, sanitizer violation); empty disables "
          "dumping.")
+_declare("TPUSTACK_TENANT_CARDINALITY", int, 32,
+         "Max distinct tenant label values on tenant-labelled metrics; "
+         "tenants beyond the first N collapse into the 'other' overflow "
+         "bucket (bounds scrape cardinality under hostile tenant ids).")
+_declare("TPUSTACK_TENANT_DEFAULT", str, "anonymous",
+         "Tenant charged for requests that carry no X-Tenant-Id header "
+         "and no body 'tenant' field.")
+
+# --------------------------------------------------------------------- QoS
+_declare("TPUSTACK_QOS", bool, True,
+         "Multi-tenant QoS layer (tpustack_torch.serving.qos): priority "
+         "classes at admission/scheduling, per-tenant token-bucket quotas, "
+         "and SLO-aware shedding; 0 is the bisection flag — the admission "
+         "path and engine outputs are byte-for-byte the QoS-free stack.")
+_declare("TPUSTACK_QOS_POLICY", str, "",
+         "QoS policy: inline JSON (starts with '{') or a path to a JSON "
+         "file — per-tenant priority defaults and token-bucket quotas; "
+         "empty = priorities only, no quotas.")
 
 
 # ------------------------------------------------------------------ readers
@@ -118,6 +139,23 @@ def get_int(name: str, env: Optional[Mapping[str, str]] = None) -> int:
         return int(val)
     except ValueError:
         raise ValueError(f"{name}={val!r} is not an integer") from None
+
+
+_TRUTHY = frozenset({"1", "true", "yes", "on"})
+_FALSY = frozenset({"0", "false", "no", "off"})
+
+
+def get_bool(name: str, env: Optional[Mapping[str, str]] = None) -> bool:
+    knob = _knob(name, bool)
+    val = (os.environ if env is None else env).get(name)
+    if val is None or not val.strip():
+        return knob.default
+    low = val.strip().lower()
+    if low in _TRUTHY:
+        return True
+    if low in _FALSY:
+        return False
+    raise ValueError(f"{name}={val!r} is not a boolean (want 1/true/yes/on or 0/false/no/off)")
 
 
 def get_float(name: str, env: Optional[Mapping[str, str]] = None) -> float:
