@@ -60,7 +60,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    three families present, and ``/props`` ``decode_kernel`` ``paged_flash``.
    Then one decode chunk teacher-forced through the kernel and through the
    gather path, and a torch.profiler breakdown of one decode step and one
-   speculative verify step (4 drafts) at 8 rows of 2048 tokens.
+   speculative verify step (4 drafts) at 8 rows of 2048 tokens.  The flash
+   launches are split by route: the panel route (the TPU's ``_attn_kernel``)
+   and the streaming route (``_attn_kernel_stream``: ``kv_len`` given).
+   Phase 3's streaming-route shapes of phase 4e (the second chunk and the
+   final warm start of a 1024-token chunked prefill, the solo engine's
+   second 8192-token chunk over 16384 keys) are timed after phase 4b too.
+4e. The LLM engine's modes on phase 4b's model, each with exact launch
+   counts by route: (a) chunked prefill (``TPUSTACK_PREFILL_CHUNK_TOKENS=
+   1024``): 7 short rows decode while a 3000-token prompt arrives, chunked
+   (exactly 2 chunk dispatches in the engine stats and ``/metrics``) and
+   monolithic in one call, the short rows' longest wait spanning the long
+   prefill printed for both; then the same prompt prefilled both ways into
+   fresh blocks, a decode chunk teacher-forced from each (logits within
+   ``LLM_LOGITS_REL_L2``) and the greedy agreement; (b) the host KV tier
+   (``TPUSTACK_KV_HOST_TIER_MB=1024``, crossover off, a pool the size of a
+   filler's footprint): a ~2000-token prefix evicted by the filler spills,
+   a repeat restores it, exact spilled and restored counts, conservation,
+   the restored request's ids equal to a large pool's, restore against
+   recompute walls and the crossover guard's verdict; (c) the dense engine
+   (``TPUSTACK_PAGED_KV=0``): phase 4b's 8 prompts on the paged and on the
+   dense engine, agreement and aggregate tokens/s, one dense prefix-store
+   hit, a profile of one dense decode step; (d) the solo engine
+   (``LLM_MAX_BATCH=1``) at ctx 16384: a 9000-token prompt served plain and
+   streamed with equal ids (two 8192-token chunks: the panel route, then the
+   streaming route at ``[1,8192,28,128]`` over ``[1,16384,4,128]``);
+   (e) the draft-model drafter (``TPUSTACK_SPEC_DRAFT=qwen25_7b``, a seed-0
+   twin of the target): acceptance, agreement with speculation off, the
+   draft's wall per drafted token.
 4c. The Wan T2V path: the port's graph server in-process at Wan2.1 1.3B
    width (DiT 1536 x 30 layers, 12 heads of 128; umt5-xxl; the z=16 VAE;
    bf16, weights drawn on the card from seed 0).  One prompt at the
@@ -76,7 +103,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    breakdown of one DiT evaluation at CFG batch 2.  ``/readyz`` 200, and
    ``/metrics`` moved by the three prompts.
 5. A JSON line of the end-to-end numbers, then, as the line before the last,
-   one JSON line listing every kernel with its numbers.  Each phase prints
+   one JSON line listing every kernel with its numbers: the flash kernel
+   once per TPU kernel it stands for (the panel and the streaming route,
+   each with its launches by path) and the paged kernel.  Each phase prints
    its wall time.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -88,6 +117,7 @@ maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``, printed).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -340,6 +370,42 @@ def llm_flash_cases(prefix: int):
     ]
 
 
+# the new main-path shapes of the streaming route (row 2): the second chunk
+# of a 1024-token chunked prefill and the final warm start after two chunks
+# (phase 4e a), and the solo engine's second 8192-token chunk over the
+# 16384-token cache (phase 4e d)
+LLM_STREAM_CASES = [
+    ("llm chunk @1024", (1, 1024, 28, 128), (1, 4096, 4, 128),
+     dict(causal=True, q_offset=1024, kv_len=2048), "llm_chunked"),
+    ("llm chunk @2048", (1, 1024, 28, 128), (1, 4096, 4, 128),
+     dict(causal=True, q_offset=2048, kv_len=3072), "llm_chunked"),
+    ("llm solo chunk 8192 @8192", (1, 8192, 28, 128), (1, 16384, 4, 128),
+     dict(causal=True, q_offset=8192, kv_len=16384), "llm_solo"),
+]
+# the twin's float32 scores: up to 2^31 elements in one call (the SD1.5,
+# Wan and 4096-context LLM shapes), above that blocks of q rows of at most
+# 2^30 (each row's function is unchanged)
+TWIN_WHOLE_MAX, TWIN_BLOCK_MAX = 1 << 31, 1 << 30
+
+
+def twin_attention(q, k, v, kw):
+    """``flash_attention_ref`` on the same inputs, in blocks of q rows when
+    the scores would be large (a row's result does not depend on the
+    others)."""
+    import torch
+
+    from tpustack_torch.ops.flash_attention import flash_attention_ref
+
+    b, sq, h, _ = q.shape
+    if b * h * sq * k.shape[1] <= TWIN_WHOLE_MAX:
+        return flash_attention_ref(q, k, v, **kw)
+    rows = max(1, TWIN_BLOCK_MAX // (b * h * k.shape[1]))
+    off = kw.get("q_offset") or 0
+    return torch.cat([flash_attention_ref(q[:, i:i + rows], k, v,
+                                          **dict(kw, q_offset=off + i))
+                      for i in range(0, sq, rows)], dim=1)
+
+
 def library_attention(torch, q, k, v, kw):
     """(fn, name): one SDPA call computing the same function, the yardstick
     (timed here, never used by the port).  Causal over the first kv_len keys
@@ -372,7 +438,7 @@ def library_attention(torch, q, k, v, kw):
 def phase_kernels(torch, cases, sm_mhz: float):
     """Phase 3: the flash kernel vs its twin on the card; returns per-shape
     records."""
-    from tpustack_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from tpustack_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator("cuda").manual_seed(0)
     records = []
@@ -380,7 +446,7 @@ def phase_kernels(torch, cases, sm_mhz: float):
         q, k, v = (torch.randn(s, generator=g, device="cuda").bfloat16() for s in (qs, ks, ks))
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, **kw)
+        ref = twin_attention(q, k, v, kw)
         diff = out.float() - ref.float()
         err = diff.abs().max().item()
         rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
@@ -396,7 +462,7 @@ def phase_kernels(torch, cases, sm_mhz: float):
         iters = 20 if b * sq * sk > 1e8 else 50
         rec["ms"] = device_ms(lambda: flash_attention(q, k, v, **kw), iters)
         rec["call_ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
-        rec["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
+        rec["plain_ms"] = cuda_ms(lambda: twin_attention(q, k, v, kw), 3)
         lib, rec["library_call"] = library_attention(torch, q, k, v, kw)
         rec["library_ms"] = device_ms(lib, iters)
         del ref, out, lib
@@ -740,12 +806,25 @@ def post_json(url: str, body: dict, timeout: float = 900):
 
 
 def _text_of(tok, words, n_tokens: int) -> str:
-    """Text of at least ``n_tokens`` tokens (with BOS) cycling ``words``."""
-    out, i = [], 0
-    while len(tok.encode(" ".join(out))) < n_tokens:
-        out.append(words[i % len(words)])
-        i += 1
-    return " ".join(out)
+    """The shortest text cycling ``words`` with at least ``n_tokens`` tokens
+    (with BOS).  The count only grows with each word, so the word count is
+    found by doubling then bisection: O(log n) encodes of a long prompt, not
+    one per word."""
+    def text(k):
+        return " ".join(words[i % len(words)] for i in range(k))
+
+    def enough(k):
+        return len(tok.encode(text(k))) >= n_tokens
+
+    if enough(0):
+        return ""
+    lo, hi = 0, 1
+    while not enough(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if enough(mid) else (mid, hi)
+    return text(hi)
 
 
 BODY_FIELDS = {"content", "model", "stop", "stopped_eos", "stopped_limit", "tokens_evaluated",
@@ -767,12 +846,32 @@ def wait_engine_idle(server, timeout: float = 120.0) -> None:
         time.sleep(0.01)
 
 
+def llm_bodies(tok, sizes, on_card: bool):
+    """Phase 4b's prompts: ``(system prompt, long body, the 8 batch bodies)``
+    (a repetitive body, a >=``sizes[1]``-token prompt outside the cache, a
+    prefix hit with a ``sizes[2]``-token suffix, five questions)."""
+    words = ("the cluster schedules every job on the accelerator pool and records its "
+             "throughput latency and memory use in the shared ledger").split()
+    system = "System: " + _text_of(tok, words, sizes[0])
+    rep = " ".join(["alpha beta gamma delta"] * (24 if on_card else 1))
+    long_body = _text_of(tok, ("a long report on device memory bandwidth kernels "
+                               "and queues").split(), sizes[1])
+    suffix = _text_of(tok, "each request shares the cached system prompt".split(), sizes[2])
+    bodies = [
+        {"prompt": system + " Repeat: " + rep},                         # drafts accepted
+        {"prompt": system + " Report: " + long_body, "cache_prompt": False},  # panel flash
+        {"prompt": system + " Context: " + suffix},                     # streaming flash
+    ] + [{"prompt": system + f" Question {i}: what ran on node {i} today?"}
+         for i in range(LLM_SLOTS - 3)]
+    return system, long_body, bodies
+
+
 def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: int = LLM_NEW):
     """Phase 4b: the LLM server at Qwen2.5-7B width; returns the launch
     counts and the measured rates.  ``sizes``: the system prompt's, the
     long prompt's and the long suffix's token counts (a CPU rehearsal
     passes the tiny preset and small sizes)."""
-    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.ops.flash_attention import flash_attention, reset_launches
     from tpustack_torch.ops.paged_attention import paged_attention_partial
     from tpustack_torch.serving.llm_server import LLMServer
 
@@ -791,19 +890,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         f"{torch.cuda.memory_allocated() / 1e9 if on_card else 0:.2f} GB allocated; "
         f"tokenizer {type(tok).__name__}")
     url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
-    words = ("the cluster schedules every job on the accelerator pool and records its "
-             "throughput latency and memory use in the shared ledger").split()
-    system = "System: " + _text_of(tok, words, sizes[0])
-    rep = " ".join(["alpha beta gamma delta"] * (24 if on_card else 1))
-    long_body = _text_of(tok, ("a long report on device memory bandwidth kernels "
-                               "and queues").split(), sizes[1])
-    suffix = _text_of(tok, "each request shares the cached system prompt".split(), sizes[2])
-    bodies = [
-        {"prompt": system + " Repeat: " + rep},                         # drafts accepted
-        {"prompt": system + " Report: " + long_body, "cache_prompt": False},  # panel flash
-        {"prompt": system + " Context: " + suffix},                     # streaming flash
-    ] + [{"prompt": system + f" Question {i}: what ran on node {i} today?"}
-         for i in range(LLM_SLOTS - 3)]
+    system, long_body, bodies = llm_bodies(tok, sizes, on_card)
     try:
         check_ready(url, "llm")
         # warm-up outside the counts (CUDA and cuBLAS initialisation)
@@ -817,7 +904,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         runs0 = len(server.run_log)
         spec0 = (server._spec_drafted, server._spec_accepted)
         paged_attention_partial.launches = 0
-        flash_attention.launches = 0
+        reset_launches()
         # one solo request carrying the system prompt (the cache keeps it)
         t1 = time.perf_counter()
         solo = post_json(url + "/completion", {"prompt": system + " Question: what is the "
@@ -841,6 +928,7 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
         sync(torch)
         paged_launches = paged_attention_partial.launches
         flash_launches = flash_attention.launches
+        flash_routes = dict(flash_attention.route_launches)
         runs = list(server.run_log)[runs0:]
         props = json.loads(urllib.request.urlopen(url + "/props", timeout=60).read())
         # the serving surface: streams, the drain drill, a deadline, a trace
@@ -928,12 +1016,19 @@ def phase_llm(torch, preset: str = "qwen25_7b", sizes=(256, 1100, 600), n_new: i
     log(f"llm: prefix hits of {prefix} tokens ({hits} hits, "
         f"{props['prefix_cache']['cached_tokens_served']} tokens served from the cache)")
     e2e["surface"] = surface["e2e"]
-    del server, rt, gen
+    del server, rt
     steps_all = steps + surface["forward_steps"]
     verify_all = verify_steps + surface["verify_forward_steps"]
+    routes = {k: flash_routes[k] + surface["flash_routes"][k] for k in flash_routes}
+    log(f"llm: flash_attention launches by route over phase 4b: {routes} (the panel route "
+        f"for the from-zero prefills of >=1024-token buckets, the streaming route for the "
+        f"long suffix's prefix hit)")
+    if on_card:
+        assert routes == {"panel": 5 * cfg.n_layers, "stream": cfg.n_layers}, routes
+    # the model and tokenizer stay alive for phase 4e, which reuses them
     return dict(paged_launches=paged_launches + surface["paged_launches"],
                 flash_launches=flash_launches + surface["flash_launches"], e2e=e2e,
-                prefix_hit_tokens=prefix,
+                flash_routes=routes, gen=gen, tok=tok, prefix_hit_tokens=prefix,
                 paged_launches_by_step={"decode": cfg.n_layers * (steps_all - verify_all),
                                         "verify": cfg.n_layers * verify_all})
 
@@ -967,7 +1062,7 @@ def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_
     completion decodes, ``/readyz`` 503 draining, new work 503, the in-flight
     completion whole, undrain, a leak-free pool); a 504 that frees its
     blocks; and a ``traceparent`` round trip to ``/debug/traces/{id}``."""
-    from tpustack_torch.ops.flash_attention import flash_attention
+    from tpustack_torch.ops.flash_attention import flash_attention, reset_launches
     from tpustack_torch.ops.paged_attention import paged_attention_partial
 
     on_card = DEVICE == "cuda"
@@ -988,7 +1083,7 @@ def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_
 
     runs0 = len(server.run_log)
     paged_attention_partial.launches = 0
-    flash_attention.launches = 0
+    reset_launches()
     out = {}
 
     # 1. streamed vs non-streamed, each alone, greedy, outside the cache
@@ -1128,6 +1223,7 @@ def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_
     sync(torch)
     paged = paged_attention_partial.launches
     flash = flash_attention.launches
+    flash_routes = dict(flash_attention.route_launches)
     runs = list(server.run_log)[runs0:]
     steps = sum(r["kernel_forward_steps"] for r in runs)
     verify = sum(r.get("spec_dispatches", 0) for r in runs)
@@ -1144,8 +1240,8 @@ def llm_serving_surface(torch, server, url: str, system: str, long_body: str, n_
     assert all(r["decode_kernel"] == "paged_flash" for r in runs) or not on_card, runs
     assert paged == want_paged and steps > 0, (paged, want_paged)
     assert flash == want_flash, (flash, want_flash)
-    return dict(paged_launches=paged, flash_launches=flash, forward_steps=steps,
-                verify_forward_steps=verify, completions_sent=sent, e2e=out)
+    return dict(paged_launches=paged, flash_launches=flash, flash_routes=flash_routes,
+                forward_steps=steps, verify_forward_steps=verify, completions_sent=sent, e2e=out)
 
 
 def _agreement(torch, a, b) -> dict:
@@ -1833,6 +1929,691 @@ def profile_dit(torch, pipe, x, t, ctx, evals: int = 3) -> dict:
             "dit_flash_share": flash / busy}
 
 
+# ----------------------------------------------------------------- phase 4e
+# phase 4e's traffic at full width (the CPU rehearsal passes smaller sizes)
+MODES_SIZES = dict(
+    chunk_tokens=1024,      # (a) TPUSTACK_PREFILL_CHUNK_TOKENS
+    long_tokens=3000,       # (a) the long prompt: chunks at 0 and 1024, warm start at 2048
+    short_new=96,           # (a) the seven short rows' budgets
+    long_new=32,
+    prefix_tokens=1984,     # (b) the shared prefix (31 whole blocks of 64)
+    filler_tokens=2540,     # (b) the filler whose footprint is the whole pool
+    tier_mb=1024,           # (b) TPUSTACK_KV_HOST_TIER_MB
+    tier_new=16,
+    dense_new=64,           # (c) the 8 concurrent completions' budgets
+    store_chunk=256,        # (c) TPUSTACK_PREFIX_CACHE_CHUNK: the system prompt is one
+    solo_ctx=16384,         # (d) LLM_CTX of the solo engine
+    solo_tokens=9000,       # (d) the long prompt: bucket 16384, two 8192-token chunks
+    solo_new=32,
+    draft_new=64,           # (e) the draft-model completion's budget
+)
+
+
+@contextlib.contextmanager
+def env_set(env: dict):
+    """Set environment knobs for a block, restore them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def spy_rows(server) -> list:
+    """Wrap ``server._slot_request``: one record per finished row (its ids,
+    each wave's delivery time, its output and stats)."""
+    seen, lock = [], threading.Lock()
+    wrapped = server._slot_request
+
+    def spy(r):
+        sreq = wrapped(r)
+        # t_slot: when the engine took the request (its admission begins)
+        rec = {"ids": list(r.ids), "times": [], "t_slot": time.perf_counter()}
+        done, toks = sreq.on_done, sreq.on_tokens
+
+        def on_tokens(t):
+            rec["times"].append(time.perf_counter())
+            if toks is not None:
+                toks(t)
+
+        def on_done(tokens, stats):
+            rec.update(out=None if tokens is None else list(tokens), stats=dict(stats),
+                       done=time.perf_counter())
+            with lock:
+                seen.append(rec)
+            done(tokens, stats)
+
+        sreq.on_tokens, sreq.on_done = on_tokens, on_done
+        return sreq
+
+    server._slot_request = spy
+    return seen
+
+
+def expected_flash(gen, n_prompt: int, base: int = 0) -> dict:
+    """Flash launches by route of one prefill of ``n_prompt`` tokens from
+    cache position ``base``, by the dispatch rules stated before the run
+    (``Generator._prefill_from``, ``LlamaAttention._cache_attention``,
+    ``ops.attention.auto_impl``): a suffix from ``base > 0`` whose bucket x
+    ctx is at most ``MASKED_PREFILL_MAX`` is one masked plain pass; else
+    ``PREFILL_CHUNK``-token chunks, the one at position 0 on the panel route
+    (the kernel only for >= 1024 rows: ``auto_impl``) and every other one on
+    the streaming route; one launch per layer each.  Zero on the CPU."""
+    from tpustack_torch.ops.attention import FLASH_MIN_SQ
+
+    out = {"panel": 0, "stream": 0}
+    if DEVICE != "cuda":
+        return out
+    S, L = gen.cfg.max_seq, gen.cfg.n_layers
+    bucket = gen._bucket(n_prompt) if base == 0 else min(gen._bucket(n_prompt - base), S - base)
+    if base > 0 and bucket * S <= gen.MASKED_PREFILL_MAX:
+        return out
+    for lo in range(0, bucket, gen.PREFILL_CHUNK):
+        n = min(gen.PREFILL_CHUNK, bucket - lo)
+        if base + lo == 0:
+            out["panel"] += L if n >= FLASH_MIN_SQ else 0
+        else:
+            out["stream"] += L
+    return out
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _lead(a, b) -> int:
+    """Leading equal tokens of two id lists."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+class _Counts:
+    """The launch counters of one measured window: zeroed at construction,
+    read by ``read()`` after the engine went idle."""
+
+    def __init__(self, torch, server):
+        from tpustack_torch.ops.flash_attention import reset_launches
+        from tpustack_torch.ops.paged_attention import paged_attention_partial
+
+        self.torch, self.server, self.runs0 = torch, server, len(server.run_log)
+        sync(torch)
+        paged_attention_partial.launches = 0
+        reset_launches()
+
+    def read(self):
+        from tpustack_torch.ops.flash_attention import flash_attention
+        from tpustack_torch.ops.paged_attention import paged_attention_partial
+
+        wait_engine_idle(self.server)
+        sync(self.torch)
+        runs = list(self.server.run_log)[self.runs0:]
+        steps = sum(r.get("kernel_forward_steps", 0) for r in runs)
+        return dict(flash=dict(flash_attention.route_launches),
+                    paged=paged_attention_partial.launches, steps=steps, runs=runs)
+
+
+def check_paged(label, gen, counts) -> None:
+    """The paged kernel ran once per layer per forward step of the window."""
+    want = gen.cfg.n_layers * counts["steps"] if DEVICE == "cuda" else 0
+    log(f"{label}: paged_attention launches {counts['paged']} (expected {gen.cfg.n_layers} x "
+        f"{counts['steps']} forward steps = {want})")
+    assert counts["paged"] == want, (label, counts["paged"], want)
+
+
+def check_flash(label, counts, want: dict, why: str) -> None:
+    log(f"{label}: flash_attention launches by route {counts['flash']} (expected {want}: {why})")
+    assert counts["flash"] == want, (label, counts["flash"], want)
+
+
+def modes_a_chunked(torch, gen, tok, sz) -> dict:
+    """(a) Chunked prefill on the paged engine: 7 short rows decode while one
+    long prompt arrives, chunked (``TPUSTACK_PREFILL_CHUNK_TOKENS``) and
+    monolithic, one run each in this call; then the chunked prefill's
+    teacher-forced logits against the monolithic prefill's."""
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    cfg, on_card = gen.cfg, DEVICE == "cuda"
+    words = "each night shift writes the scheduler log of every queue".split()
+    shorts = [{"prompt": f"Row {i}: " + _text_of(tok, words, 24), "n_predict": sz["short_new"],
+               "temperature": 0, "cache_prompt": False} for i in range(LLM_SLOTS - 1)]
+    long_text = _text_of(tok, "a long audit of every kernel launch and memory copy".split(),
+                         sz["long_tokens"])
+    long_body = {"prompt": long_text, "n_predict": sz["long_new"], "temperature": 0,
+                 "cache_prompt": False}
+    L = len(tok.encode(long_text))
+    out, rows = {}, {}
+    for chunk in (sz["chunk_tokens"], 0):
+        with env_set({"TPUSTACK_PREFILL_CHUNK_TOKENS": chunk, "TPUSTACK_PREFIX_CACHE": "1",
+                      "TPUSTACK_KV_POOL_BLOCKS": "0"}):
+            server = LLMServer(gen, tok, model_name="llm-chunked")
+            block = server.paged.block
+            seen = spy_rows(server)
+            url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+            try:
+                m0 = scrape(url)
+                counts = _Counts(torch, server)
+                res = [None] * LLM_SLOTS
+
+                def send(i, body):
+                    res[i] = post_json(url + "/completion", body)
+
+                threads = [threading.Thread(target=send, args=(i, b))
+                           for i, b in enumerate(shorts)]
+                for t in threads:
+                    t.start()
+                t_end = time.time() + 300
+                while True:  # every short row decoding (or, rehearsed, one done)
+                    slots = list(getattr(server._engine, "_slots_view", None) or [])
+                    decoding = sum(1 for s in slots if s.req is not None and not s.pending
+                                   and len(s.out) > 1)
+                    if decoding == len(shorts) or seen:
+                        break
+                    assert time.time() < t_end, "the short rows never started decoding"
+                    time.sleep(0.002)
+                send(len(shorts), long_body)
+                for t in threads:
+                    t.join(timeout=600)
+                c = counts.read()
+                m1 = scrape(url)
+            finally:
+                server.stop()
+        assert all(r[0] == 200 for r in res), [r[0] for r in res]
+        long_rec = next(r for r in seen if len(r["ids"]) == L)
+        # the short rows' waits between two deliveries that span part of the
+        # long prompt's prefill: from the engine taking it to its first token
+        t_in, t_first = long_rec["t_slot"], long_rec["times"][0]
+        gaps = [b - a for r in seen if r is not long_rec
+                for a, b in zip(r["times"], r["times"][1:]) if b > t_in and a < t_first] or [0.0]
+        all_gaps = [b - a for r in seen if r is not long_rec
+                    for a, b in zip(r["times"], r["times"][1:])]
+        chunks = sum(r.get("prefill_chunks", 0) for r in c["runs"])
+        moved = (metric_sum(m1, "tpustack_llm_prefill_chunks_total")
+                 - metric_sum(m0, "tpustack_llm_prefill_chunks_total"))
+        label = f"llm 4e(a) chunk {chunk}"
+        log(f"{label}: {decoding} short rows decoding when the long prompt ({L} tokens) was "
+            f"sent; {long_rec['stats'].get('prefill_chunks', 0)} chunk dispatches (engine "
+            f"stats {chunks}, /metrics moved {moved:.0f}); the long row's first token "
+            f"{(t_first - t_in) * 1e3:.1f} ms after the engine took it (the last admission's "
+            f"prefill_s {long_rec['stats']['prefill_s'] * 1e3:.1f} ms); the short rows' "
+            f"longest wait between deliveries spanning that prefill {max(gaps) * 1e3:.1f} ms "
+            f"({len(gaps)} waits, median {sorted(gaps)[len(gaps) // 2] * 1e3:.1f} ms); longest "
+            f"over the whole run {max(all_gaps or [0.0]) * 1e3:.1f} ms (median "
+            f"{sorted(all_gaps or [0.0])[len(all_gaps) // 2] * 1e3:.1f} ms)")
+        if chunk:
+            # block-aligned chunks while the remainder exceeds the chunk
+            # (at full width [0, 1024) and [1024, 2048)), then the warm start
+            step = max(block, chunk // block * block)
+            want_chunks, plen, want = 0, 0, {"panel": 0, "stream": 0}
+            while L - plen > step:
+                want = _add(want, expected_flash(gen, plen + step, plen))
+                want_chunks += 1
+                plen += step
+            want = _add(want, expected_flash(gen, L, plen))
+            assert plen % block == 0, (plen, block)
+            assert chunks == moved == want_chunks == long_rec["stats"]["prefill_chunks"], \
+                (chunks, moved, want_chunks, long_rec["stats"])
+            assert long_rec["stats"]["prefill_tokens"] == L
+            why = (f"{want_chunks} chunks of {step} (from position 0 on the panel route, the "
+                   f"rest streaming) and the {L - plen}-token warm start at {plen}")
+        else:
+            want = expected_flash(gen, L, 0)
+            assert "prefill_chunks" not in long_rec["stats"] and moved == 0
+            why = "one from-zero prefill of the whole bucket on the panel route"
+        check_flash(label, c, want, why)
+        check_paged(label, gen, c)
+        out[f"max_gap_ms_chunk_{chunk}"] = max(gaps) * 1e3
+        out[f"median_gap_ms_chunk_{chunk}"] = sorted(gaps)[len(gaps) // 2] * 1e3
+        out[f"max_gap_run_ms_chunk_{chunk}"] = max(all_gaps or [0.0]) * 1e3
+        out[f"long_ttft_ms_chunk_{chunk}"] = (t_first - t_in) * 1e3
+        out[f"flash_chunk_{chunk}"] = c["flash"]
+        rows[chunk] = long_rec["out"]
+        out.setdefault("paged_launches", 0)
+        out["paged_launches"] += c["paged"]
+    out["long_prompt_tokens"] = L
+    out["served_agreement"] = _lead(rows[sz["chunk_tokens"]], rows[0])
+    log(f"llm 4e(a): the long row's served ids, chunked against monolithic: the first "
+        f"{out['served_agreement']} of {len(rows[0])} equal")
+    out.update(chunk_vs_mono_logits(torch, gen, tok.encode(long_text), step))
+    out["flash"] = _add(out["flash_chunk_0"], out[f"flash_chunk_{sz['chunk_tokens']}"])
+    return out
+
+
+def chunk_vs_mono_logits(torch, gen, ids, step, steps=16, greedy=32) -> dict:
+    """The long prompt prefilled into fresh pool blocks twice, monolithic
+    (``_admit_fused_paged``) and chunked (``_prefill_chunk_paged`` twice,
+    then the ``_admit_prefix_paged`` warm start), then one decode chunk of
+    ``steps`` teacher-forced tokens from each: logits relative L2 (limit
+    ``LLM_LOGITS_REL_L2``) and the greedy continuations' agreement."""
+    import numpy as np
+
+    from tpustack_torch.serving.llm_server import build_paged
+
+    L, S = len(ids), gen.cfg.max_seq
+    steps = min(steps, (S - L) // 2)
+    greedy = min(greedy, S - L - steps)
+    rt = build_paged(gen, 1, block=64 if DEVICE == "cuda" else None,
+                     n_blocks=2 * (S // (64 if DEVICE == "cuda" else 16)), prefix_cache=False)
+    teacher = torch.as_tensor(np.random.RandomState(4).randint(3, gen.cfg.vocab_size,
+                                                               (1, steps)), device=DEVICE)
+    greedy_args = (np.zeros(1, np.float32), np.zeros(1, np.int64), np.ones(1, bool))
+    logits, conts, held = {}, {}, []
+    for mode in ("mono", "chunked"):
+        blocks = rt.pool.alloc_tokens(L + greedy + steps)
+        held += blocks
+        bt = np.zeros((1, rt.blocks_per_seq), np.int32)
+        bt[0, :len(blocks)] = blocks
+        limit = np.array([L + greedy + steps], np.int64)
+        if mode == "mono":
+            tokens = np.zeros((1, gen._bucket(L)), np.int64)
+            tokens[0, :L] = ids
+            first, _ = gen._admit_fused_paged(tokens, rt.arrays, bt, np.array([L]), limit, [0],
+                                              *greedy_args)
+        else:
+            plen = 0
+            while L - plen > step:
+                tokens = np.zeros((1, gen._bucket(step)), np.int64)
+                tokens[0, :step] = ids[plen:plen + step]
+                gen._prefill_chunk_paged(rt.arrays, bt, tokens, plen,
+                                         np.array([plen + step], np.int64))
+                plen += step
+            tokens = np.zeros((1, min(gen._bucket(L - plen), S - plen)), np.int64)
+            tokens[0, :L - plen] = ids[plen:]
+            first, _ = gen._admit_prefix_paged(tokens, rt.arrays, bt, plen, np.array([L]), limit,
+                                               [0], *greedy_args)
+        state = (np.array([L], np.int64), np.ones(1, np.int64))
+        *_, lg = gen._decode_scan_paged(first[:, None], *state, rt.arrays, bt, [None],
+                                        *greedy_args, steps, flash=True, teacher=teacher)
+        logits[mode] = lg
+        toks, _, _ = gen._decode_scan_paged(first[:, None], *state, rt.arrays, bt, [None],
+                                            *greedy_args, greedy, flash=True)
+        conts[mode] = [int(first[0])] + toks[0].cpu().tolist()
+    a, b = logits["chunked"].float(), logits["mono"].float()
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = _lead(conts["chunked"], conts["mono"])
+    log(f"llm 4e(a): teacher-forced {steps}-step chunk after a {L}-token prefill, chunked "
+        f"({step}-token chunks) against monolithic: logits relative L2 {rel:.3e} (limit "
+        f"{LLM_LOGITS_REL_L2}), argmax agreement "
+        f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}; greedy continuations "
+        f"agree for the first {agree} of {len(conts['mono'])} tokens")
+    assert bool(torch.isfinite(a).all()) and rel < LLM_LOGITS_REL_L2, rel
+    rt.pool.decref(held)
+    del rt
+    return dict(chunk_logits_rel_l2=rel, chunk_greedy_agreement=agree)
+
+
+def modes_b_host_tier(torch, gen, tok, sz) -> dict:
+    """(b) The host KV tier: a shared prefix evicted by a filler whose
+    footprint is the whole pool spills to host RAM, and a repeat restores
+    it; exact spill and restore counts, conservation, and the restored
+    request's ids against a pool large enough that nothing is evicted."""
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    cfg = gen.cfg
+    prefix = _text_of(tok, "the shared operator manual describes every alert and its "
+                           "runbook step by step".split(), sz["prefix_tokens"])
+    tail_a, tail_b = " Q: alerts on node 3?", " Q: runbook for node 5?"
+    filler = _text_of(tok, "an unrelated incident report lists each timeout".split(),
+                      sz["filler_tokens"])
+    new = sz["tier_new"]
+    ids_a, ids_b, ids_f = (tok.encode(t) for t in (prefix + tail_a, prefix + tail_b, filler))
+    block = 64 if DEVICE == "cuda" else 16
+    blocks_for = lambda n: -(-n // block)  # noqa: E731
+    n_pool = blocks_for(len(ids_f) + new)  # the filler's footprint is the whole pool
+    n_a = len(ids_a) // block              # A's whole prompt blocks the cache keeps
+    n_f = len(ids_f) // block
+    shared = _lead(ids_a, ids_b)
+    # B's host chain: the whole blocks it shares with A (the trie's match)
+    n_s = min(shared // block, (len(ids_b) - 1) // block)
+    fresh_b = blocks_for(len(ids_b) + new) - n_s
+    # F's footprint is the pool: its admission evicts (spills) all n_a of A;
+    # B claims its n_s chunks, and its restore plus fresh blocks evict (and
+    # spill) whatever of F the blocks F's retirement freed do not cover
+    want_spilled = n_a + max(0, n_s + fresh_b - (n_pool - n_f))
+    assert blocks_for(len(ids_a) + new) <= n_pool and 0 < n_s <= n_a, (n_pool, n_a, n_s)
+    bodies = {k: {"prompt": t, "n_predict": new, "temperature": 0}
+              for k, t in (("A", prefix + tail_a), ("B", prefix + tail_b), ("F", filler))}
+    out = {}
+    with env_set({"TPUSTACK_KV_POOL_BLOCKS": n_pool, "TPUSTACK_KV_BLOCK": block,
+                  "TPUSTACK_KV_HOST_TIER_MB": sz["tier_mb"],
+                  "TPUSTACK_KV_HOST_TIER_CROSSOVER": "0", "TPUSTACK_PREFIX_CACHE": "1",
+                  "TPUSTACK_PREFILL_CHUNK_TOKENS": "0"}):
+        server = LLMServer(gen, tok, model_name="llm-host-tier")
+        seen = spy_rows(server)
+        url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+        rt = server.paged
+        tier = rt.cache.host_tier
+        try:
+            m0 = scrape(url)
+            counts = _Counts(torch, server)
+            st = {}
+            for k in ("A", "F", "B"):
+                st[k], _, body = post_json(url + "/completion", bodies[k])
+                wait_engine_idle(server)
+                out[f"{k}_prompt_ms"] = body["timings"]["prompt_ms"]
+            tier_st = tier.stats()
+            cache_st = rt.cache.stats()
+            m1 = scrape(url)
+            c = counts.read()
+            # the recompute wall of the same request, then the guard's
+            # verdict on this call's measured costs with the crossover on
+            st["B_recompute"], _, body = post_json(url + "/completion",
+                                                   dict(bodies["B"], cache_prompt=False))
+            wait_engine_idle(server)
+            out["B_recompute_prompt_ms"] = body["timings"]["prompt_ms"]
+            tier._crossover = True
+            verdict = tier.should_restore(n_s)
+            guard = tier.stats()
+        finally:
+            server.stop()
+    # one block's spill copy with the pinned buffer warm (the caching host
+    # allocator reuses a freed one), and the restore of B's blocks alone
+    from tpustack_torch.serving.kv_host_tier import pack_block
+
+    for _ in range(2):
+        pack_block(rt.arrays, 1)
+    t = time.perf_counter()
+    for _ in range(5):
+        pack_block(rt.arrays, 1)
+    warm_copy_ms = (time.perf_counter() - t) / 5 * 1e3
+    payloads = [pack_block(rt.arrays, 1) for _ in range(n_s)]
+    sync(torch)
+    t = time.perf_counter()
+    gen._restore_blocks_paged(rt.arrays, list(range(1, n_s + 1)), payloads)
+    sync(torch)
+    restore_ms = (time.perf_counter() - t) * 1e3
+    del payloads
+    restored_ids = next(r["out"] for r in seen if r["ids"] == ids_b)
+    moved = {k: metric_sum(m1, f"tpustack_llm_kv_host_{k}_blocks_total")
+             - metric_sum(m0, f"tpustack_llm_kv_host_{k}_blocks_total")
+             for k in ("spilled", "restored")}
+    log(f"llm 4e(b): pool {n_pool} blocks of {block}; prompts A {len(ids_a)}, filler "
+        f"{len(ids_f)}, B {len(ids_b)} tokens ({shared} shared with A); statuses {st}; tier "
+        f"{ {k: tier_st[k] for k in ('spilled_total', 'restored_total', 'expired_total', 'resident_blocks', 'resident_bytes', 'block_bytes')} } "
+        f"(expected spilled {want_spilled}, restored {n_s}); /metrics moved {moved}; cache "
+        f"host hits {cache_st.get('host_hits')}")
+    assert all(v == 200 for v in st.values()), st
+    assert tier_st["spilled_total"] == want_spilled and tier_st["restored_total"] == n_s, tier_st
+    assert tier_st["spilled_total"] == (tier_st["restored_total"] + tier_st["expired_total"]
+                                        + tier_st["resident_blocks"]), tier_st
+    assert moved == {"spilled": want_spilled, "restored": n_s}, moved
+    check_flash("llm 4e(b)", c, _add(_add(expected_flash(gen, len(ids_a)),
+                                          expected_flash(gen, len(ids_f))),
+                                     expected_flash(gen, len(ids_b), n_s * block)),
+                "A's and the filler's from-zero prefills; B's warm start after the restore")
+    check_paged("llm 4e(b)", gen, c)
+    log(f"llm 4e(b): B's time to first token {out['B_prompt_ms']:.1f} ms with {n_s} blocks "
+        f"restored from host RAM, {out['B_recompute_prompt_ms']:.1f} ms recomputed; the "
+        f"restore alone {restore_ms:.2f} ms for {n_s} blocks; a block's spill copy "
+        f"{warm_copy_ms:.3f} ms with a warm pinned buffer; the crossover guard on this "
+        f"call's costs (copy {guard['copy_s_per_block']} s/block, averaged over the spills, "
+        f"prefill {guard['prefill_s_per_block']} s/block) would "
+        f"{'restore' if verdict else 'recompute'}")
+    # the same A then B from a pool large enough that nothing is evicted
+    with env_set({"TPUSTACK_KV_POOL_BLOCKS": "0", "TPUSTACK_KV_BLOCK": block,
+                  "TPUSTACK_KV_HOST_TIER_MB": "0", "TPUSTACK_PREFIX_CACHE": "1",
+                  "TPUSTACK_PREFILL_CHUNK_TOKENS": "0"}):
+        server = LLMServer(gen, tok, model_name="llm-big-pool")
+        seen_big = spy_rows(server)
+        url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+        try:
+            for k in ("A", "B"):
+                assert post_json(url + "/completion", bodies[k])[0] == 200
+                wait_engine_idle(server)
+            hits = server.paged.cache.stats()["hits"]
+        finally:
+            server.stop()
+    big_ids = next(r["out"] for r in seen_big if r["ids"] == ids_b)
+    log(f"llm 4e(b): B's ids after the restore equal B's from the large pool (a device hit of "
+        f"{n_s} blocks, {hits} hit): {restored_ids == big_ids}")
+    assert restored_ids == big_ids, (restored_ids, big_ids)
+    out.update(spilled=tier_st["spilled_total"], restored=tier_st["restored_total"],
+               restore_ms=restore_ms, warm_copy_ms=warm_copy_ms,
+               copy_s_per_block=guard["copy_s_per_block"],
+               prefill_s_per_block=guard["prefill_s_per_block"], guard_restores=verdict,
+               flash=c["flash"], paged_launches=c["paged"], pool_blocks=n_pool)
+    return out
+
+
+def profile_dense_decode(torch, gen, evals: int = 5) -> dict:
+    """One dense decode step at 8 rows of 2048 tokens: wall vs device time."""
+    import numpy as np
+
+    from tpustack_torch.models.llama import init_kv_caches
+
+    B, n = LLM_SLOTS, 2048
+    caches = init_kv_caches(gen.cfg, B, gen.cache_dtype, gen.device)
+    tokens = np.random.RandomState(2).randint(3, gen.cfg.vocab_size, (B, n))
+    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int64), np.ones(B, bool))
+    firsts, _ = gen._admit_fused(tokens, caches, np.full(B, n), list(range(B)), [0] * B,
+                                 *greedy)
+    cur, active = np.full(B, n, np.int64), np.ones(B, np.int64)
+    out = _profile_step(torch, "dense_decode", lambda: gen._decode_scan_cont(
+        firsts[:, None], cur, active, caches, [None] * B, *greedy, 1), evals)
+    del caches
+    return out
+
+
+def modes_c_dense(torch, gen, tok, sz) -> dict:
+    """(c) The dense engine (``TPUSTACK_PAGED_KV=0``): phase 4b's 8 prompts
+    concurrently on the paged and on the dense engine in this call, then one
+    dense prefix-store hit."""
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    on_card = DEVICE == "cuda"
+    system, _, bodies = llm_bodies(tok, (256, 1100, 600) if on_card else (66, 30, 20), on_card)
+    bodies = [dict(b, n_predict=sz["dense_new"], temperature=0) for b in bodies]
+    ids = {}
+    out = {}
+    for kind, env in (("paged", {"TPUSTACK_PAGED_KV": "1"}),
+                      ("dense", {"TPUSTACK_PAGED_KV": "0"})):
+        with env_set(dict(env, TPUSTACK_PREFIX_CACHE="1", TPUSTACK_KV_POOL_BLOCKS="0",
+                          TPUSTACK_KV_HOST_TIER_MB="0", TPUSTACK_PREFILL_CHUNK_TOKENS="0",
+                          TPUSTACK_PREFIX_CACHE_CHUNK=sz["store_chunk"])):
+            server = LLMServer(gen, tok, model_name=f"llm-{kind}")
+            seen = spy_rows(server)
+            url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+            try:
+                counts = _Counts(torch, server)
+                res = [None] * len(bodies)
+
+                def send(i):
+                    res[i] = post_json(url + "/completion", bodies[i])
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                wall = time.perf_counter() - t0
+                hit = None
+                if kind == "dense":  # one more sharing the stored system prompt
+                    hit = post_json(url + "/completion", {"prompt": system + " Question: "
+                                                          "what is the plan?", "n_predict": 8,
+                                                          "temperature": 0})
+                c = counts.read()
+                store = (server.prefix_cache.stats() if kind == "dense"
+                         else server.paged.cache.stats())
+            finally:
+                server.stop()
+        assert all(r[0] == 200 for r in res), [r[0] for r in res]
+        tokens = sum(r[2]["tokens_predicted"] for r in res)
+        ids[kind] = {tuple(r["ids"]): r["out"] for r in seen}
+        want = {"panel": 0, "stream": 0}
+        for r in seen:
+            want = _add(want, expected_flash(gen, len(r["ids"]), r["stats"]["cached_tokens"]))
+        check_flash(f"llm 4e(c) {kind}", c, want, "each row's from-zero prefill or warm start "
+                    "at the cache hit it got")
+        if kind == "paged":
+            check_paged("llm 4e(c) paged", gen, c)
+        else:
+            assert c["paged"] == 0 and hit[0] == 200 and store["hits"] >= 1, (c, hit, store)
+            assert all("decode_kernel" not in r for r in c["runs"]), c["runs"]
+        out[f"{kind}_tokens_per_s"] = tokens / wall
+        log(f"llm 4e(c) {kind}: 8 concurrent completions, {tokens} tokens in {wall:.2f} s = "
+            f"{tokens / wall:.2f} tokens/s aggregate; prefix store {store}")
+        out[f"flash_{kind}"] = c["flash"]
+        out[f"paged_launches_{kind}"] = c["paged"]
+    agree = [_lead(ids["dense"][k], ids["paged"][k]) for k in ids["paged"] if k in ids["dense"]]
+    out["agreement"] = agree
+    log(f"llm 4e(c): dense against paged ids, leading equal tokens per row: {agree} of "
+        f"{sz['dense_new']}")
+    if on_card:
+        out.update(profile_dense_decode(torch, gen))
+    out["flash"] = _add(out["flash_paged"], out["flash_dense"])
+    return out
+
+
+def modes_d_solo(torch, gen, tok, sz) -> dict:
+    """(d) The solo engine (``LLM_MAX_BATCH=1``) at ctx ``solo_ctx``: a long
+    prompt served plain (the fused decode) and streamed (one step per
+    token), equal ids, exact flash launches by route."""
+    import copy
+
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    solo = copy.copy(gen)  # the same weights at the longer context
+    solo.cfg = dataclasses.replace(gen.cfg, max_seq=sz["solo_ctx"])
+    solo._prefix_dev = type(gen._prefix_dev)()
+    text = _text_of(tok, "the full transcript of the quarterly capacity review".split(),
+                    sz["solo_tokens"])
+    L = len(tok.encode(text))
+    out = {}
+    with env_set({"LLM_MAX_BATCH": "1", "TPUSTACK_PREFIX_CACHE": "0"}):
+        server = LLMServer(solo, tok, model_name="llm-solo")
+        url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+        try:
+            counts = _Counts(torch, server)
+            st, _, body = post_json(url + "/completion", {"prompt": text,
+                                                          "n_predict": sz["solo_new"],
+                                                          "temperature": 0})
+            assert st == 200, body
+
+            def ids_of(stream):
+                r = server._admit(text, sz["solo_new"], 0.0, 40, None, False, True,
+                                  stream=stream)
+                server._enqueue(r)
+                got = []
+                while stream:
+                    tok_id = r.stream.get(timeout=600)
+                    if tok_id is None:
+                        break
+                    got.append(tok_id)
+                assert r.done.wait(600) and r.error is None, r.error
+                return got, [t for t in r.result[0] if t != tok.eos_id], r.result[1]
+
+            streamed, _, _ = ids_of(True)
+            _, plain, plain_stats = ids_of(False)
+            c = counts.read()
+        finally:
+            server.stop()
+    want = {k: 3 * v for k, v in expected_flash(solo, L).items()}
+    log(f"llm 4e(d): solo ctx {sz['solo_ctx']}, a {L}-token prompt (bucket "
+        f"{solo._bucket(L)}): TTFT {body['timings']['prompt_ms']:.1f} ms over HTTP, "
+        f"{plain_stats['prefill_s'] * 1e3:.1f} ms on the engine; decode "
+        f"{body['timings']['predicted_per_second']:.2f} tokens/s; streamed ids equal the "
+        f"plain ones: {streamed == plain} ({len(plain)} tokens)")
+    assert streamed == plain and len(plain) >= 1, (streamed, plain)
+    check_flash("llm 4e(d)", c, want, f"three requests, each a {solo.PREFILL_CHUNK}-token chunk "
+                "from position 0 on the panel route and the next on the streaming route over "
+                f"the {sz['solo_ctx']}-token cache")
+    assert c["paged"] == 0, c
+    out.update(ttft_ms=body["timings"]["prompt_ms"], engine_prefill_ms=plain_stats["prefill_s"] * 1e3,
+               decode_tokens_per_s=body["timings"]["predicted_per_second"], prompt_tokens=L,
+               flash=c["flash"])
+    return out
+
+
+def modes_e_draft(torch, gen, tok, sz) -> dict:
+    """(e) The draft-model drafter (``TPUSTACK_SPEC_DRAFT``): a seed-0 twin of
+    the target drafts one short greedy completion; acceptance, agreement
+    with speculation off, the draft's wall time per drafted token."""
+    from tpustack_torch.serving.llm_server import LLMServer
+
+    preset = "qwen25_7b" if DEVICE == "cuda" else "tiny"
+    body = {"prompt": "Summarise what the scheduler did on node 4 tonight.",
+            "n_predict": sz["draft_new"], "temperature": 0, "cache_prompt": False}
+    with env_set({"TPUSTACK_SPEC_DRAFT": preset, "TPUSTACK_SPEC_TOKENS": "4",
+                  "TPUSTACK_PREFIX_CACHE": "1", "TPUSTACK_KV_POOL_BLOCKS": "0"}):
+        t0 = time.perf_counter()
+        server = LLMServer(gen, tok, model_name="llm-draft")
+        drafter = server.spec_cfg.drafter
+        log(f"llm 4e(e): draft model {preset} ({drafter.gen.weight_bytes / 1e9:.3f} GB) built "
+            f"in {time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9 if DEVICE == 'cuda' else 0:.2f} GB "
+            "allocated with both models")
+        timing = {"s": 0.0, "calls": 0, "tokens": 0}
+        inner = drafter.draft
+
+        def timed_draft(history, k):
+            t = time.perf_counter()
+            got = inner(history, k)
+            timing["s"] += time.perf_counter() - t
+            timing["calls"] += 1
+            timing["tokens"] += len(got)
+            return got
+
+        drafter.draft = timed_draft
+        seen = spy_rows(server)
+        url = f"http://127.0.0.1:{server.start(host='127.0.0.1', port=0)}"
+        try:
+            counts = _Counts(torch, server)
+            spec0 = (server._spec_drafted, server._spec_accepted)
+            t1 = time.perf_counter()
+            st, _, on = post_json(url + "/completion", body)
+            wall_on = time.perf_counter() - t1
+            wait_engine_idle(server)
+            drafted = server._spec_drafted - spec0[0]
+            accepted = server._spec_accepted - spec0[1]
+            t2 = time.perf_counter()
+            st2, _, off = post_json(url + "/completion", dict(body, speculative=False))
+            wall_off = time.perf_counter() - t2
+            c = counts.read()
+        finally:
+            server.stop()
+    assert st == 200 and st2 == 200, (on, off)
+    outs = [r["out"] for r in seen]
+    agree = _lead(outs[0], outs[1])
+    ratio = accepted / drafted if drafted else 0.0
+    log(f"llm 4e(e): acceptance {accepted}/{drafted} = {ratio:.4f}; ids against speculation "
+        f"off: the first {agree} of {len(outs[1])} equal; wall {wall_on:.2f} s with the draft "
+        f"against {wall_off:.2f} s without; the draft model's wall "
+        f"{timing['s'] / max(1, timing['tokens']) * 1e3:.2f} ms per drafted token "
+        f"({timing['calls']} proposals)")
+    assert drafted > 0 and c["flash"] == {"panel": 0, "stream": 0}, (drafted, c["flash"])
+    check_paged("llm 4e(e)", gen, c)
+    return dict(acceptance=ratio, drafted=drafted, accepted=accepted, agreement=agree,
+                wall_spec_on_s=wall_on, wall_spec_off_s=wall_off,
+                draft_ms_per_token=timing["s"] / max(1, timing["tokens"]) * 1e3,
+                paged_launches=c["paged"], flash=c["flash"])
+
+
+def phase_llm_modes(torch, gen, tok, sizes=None) -> dict:
+    """Phase 4e: the LLM engine's modes on phase 4b's model (a chunked
+    prefill, the host KV tier, the dense engine, the solo engine at a long
+    context, the draft-model drafter).  Returns each part's numbers and the
+    launch counts by route and path."""
+    sz = dict(MODES_SIZES, **(sizes or {}))
+    parts = {}
+    for name, fn in (("chunked", modes_a_chunked), ("host_tier", modes_b_host_tier),
+                     ("dense", modes_c_dense), ("solo", modes_d_solo), ("draft", modes_e_draft)):
+        t = time.perf_counter()
+        parts[name] = fn(torch, gen, tok, sz)
+        parts[name]["wall_s"] = time.perf_counter() - t
+        log(f"phase 4e {name}: {parts[name]['wall_s']:.1f} s wall")
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    paged = (parts["chunked"]["paged_launches"] + parts["host_tier"]["paged_launches"]
+             + parts["dense"]["paged_launches_paged"] + parts["draft"]["paged_launches"])
+    return dict(parts=parts, paged_launches=paged,
+                flash_by_path={f"llm_{k}": v["flash"] for k, v in parts.items()})
+
+
 def build_kernels() -> dict:
     """Phase 2: one nvcc per source, all started together; {name: log}."""
     from tpustack_torch.ops import _build
@@ -1931,7 +2712,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += timed("3 flash llm", phase_kernels, torch,
-                     llm_flash_cases(llm["prefix_hit_tokens"]), sm_mhz)
+                     llm_flash_cases(llm["prefix_hit_tokens"]) + LLM_STREAM_CASES, sm_mhz)
+
+    # phase 4e: the LLM engine's modes on phase 4b's model, then free it
+    modes = timed("4e llm modes", phase_llm_modes, torch, llm.pop("gen"), llm.pop("tok"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 4d: the deployed LLM configuration (int8 weights and KV, QoS)
     llm8 = timed("4d llm int8", phase_llm_int8, torch, llm["e2e"])
@@ -1955,38 +2741,60 @@ def main() -> int:
                                        "share_of_bound", "max_abs_err", "rel_l2", "m_err",
                                        "l_rel")}
                     for r in paged_records]
-    kernels = [{
-        "name": "flash_attention", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "also_replaces": KERNEL_ALSO_REPLACES,
-        "launches": (main_path["launches"] + llm["flash_launches"] + llm8["flash_launches"]
-                     + wan["launches"]),
-        "launches_by_path": {"sd15": main_path["launches"], "llm": llm["flash_launches"],
-                             "llm_int8": llm8["flash_launches"], "wan": wan["launches"]},
-        "ok": all(r["ok"] for r in records),  # every shape within ATOL/RTOL and REL_L2
-        "max_abs_err": max(r["max_abs_err"] for r in records),
-        "rel_l2": max(r["rel_l2"] for r in records),
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "exp_bound_ms": head["exp_bound_ms"], "sm_clock_mhz": sm_mhz,
-        "shape": head["label"], "shapes": detail, "sass": sass["flash_attention"],
-    }, {
-        "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
-        "replaces": PAGED_REPLACES, "launches": llm["paged_launches"] + llm8["paged_launches"],
-        "launches_by_path": {"llm": llm["paged_launches"], "llm_int8": llm8["paged_launches"]},
-        "launches_by_step": llm["paged_launches_by_step"],
-        "launches_by_step_int8": llm8["paged_launches_by_step"],
-        "ok": all(r["ok"] for r in paged_records),
-        "max_abs_err": max(r["max_abs_err"] for r in paged_records),
-        "rel_l2": max(r["rel_l2"] for r in paged_records),
-        "ms": paged_head["ms"], "plain_ms": paged_head["plain_ms"],
-        "bound_ms": paged_head["bound_ms"], "bound_by": paged_head["bound_by"],
-        "library_ms": None, "gather_ms": paged_head["gather_ms"],
-        "shape": paged_head["label"], "shapes": paged_detail, "sass": sass["paged_attention"],
-    }]
+    # flash launches by the TPU kernel each stands for: the panel route
+    # (row 1, _attn_kernel) and the streaming route (row 2,
+    # _attn_kernel_stream); the SD1.5, Wan and int8 paths run the panel only
+    panel_by_path = {"sd15": main_path["launches"], "llm": llm["flash_routes"]["panel"],
+                     "llm_int8": llm8["flash_launches"], "wan": wan["launches"]}
+    stream_by_path = {"llm": llm["flash_routes"]["stream"]}
+    for path, routes in modes["flash_by_path"].items():
+        panel_by_path[path] = routes["panel"]
+        stream_by_path[path] = routes["stream"]
+    stream_records = [r for r in records if r["kw"].get("kv_len") is not None]
+    stream_head = next(r for r in stream_records if r["path"] == "llm_chunked")
+
+    def flash_entry(name, replaces, head, recs, by_path):
+        return {
+            "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "ok": all(r["ok"] for r in recs),  # every shape within ATOL/RTOL and REL_L2
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "rel_l2": max(r["rel_l2"] for r in recs),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "exp_bound_ms": head["exp_bound_ms"], "sm_clock_mhz": sm_mhz,
+            "shape": head["label"],
+            "shapes": [d for d in detail if d["label"] in {r["label"] for r in recs}],
+            "sass": sass["flash_attention"],
+        }
+
+    kernels = [
+        flash_entry("flash_attention", KERNEL_REPLACES, head,
+                    [r for r in records if r not in stream_records], panel_by_path),
+        flash_entry("flash_attention_stream", KERNEL_ALSO_REPLACES, stream_head,
+                    stream_records, stream_by_path),
+        {
+            "name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+            "replaces": PAGED_REPLACES,
+            "launches": llm["paged_launches"] + llm8["paged_launches"] + modes["paged_launches"],
+            "launches_by_path": {"llm": llm["paged_launches"], "llm_int8": llm8["paged_launches"],
+                                 "llm_modes": modes["paged_launches"]},
+            "launches_by_step": llm["paged_launches_by_step"],
+            "launches_by_step_int8": llm8["paged_launches_by_step"],
+            "ok": all(r["ok"] for r in paged_records),
+            "max_abs_err": max(r["max_abs_err"] for r in paged_records),
+            "rel_l2": max(r["rel_l2"] for r in paged_records),
+            "ms": paged_head["ms"], "plain_ms": paged_head["plain_ms"],
+            "bound_ms": paged_head["bound_ms"], "bound_by": paged_head["bound_by"],
+            "library_ms": None, "gather_ms": paged_head["gather_ms"],
+            "shape": paged_head["label"], "shapes": paged_detail,
+            "sass": sass["paged_attention"],
+        }]
     log(json.dumps({"sd15": {k: main_path[k] for k in ("s_per_image_b1", "images_per_s_b8",
                                                        "s_per_image_1024", "dispatches",
                                                        "unet_rel_l2")},
-                    "llm": llm["e2e"], "llm_int8": llm8["e2e"], "wan": wan["e2e"], "card": smi,
+                    "llm": llm["e2e"], "llm_int8": llm8["e2e"], "llm_modes": modes["parts"],
+                    "wan": wan["e2e"], "card": smi,
                     "phase_wall_s": walls}))
     log(json.dumps({"kernels": kernels}))  # the line before the last
     # phase 6

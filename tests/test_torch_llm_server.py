@@ -4,10 +4,14 @@ The llama.cpp surface of ``tpustack/serving/llm_server.py`` on the port's
 standard-library server: the completion body fields, tokenize/detokenize,
 the OpenAI chat shape, ``/props``, 429 + ``Retry-After`` when the KV pool
 cannot cover a request, the clear refusals of what the port does not serve
-yet (the dense solo engine, tensor parallelism, checkpoints, tokenizer
-directories, draft-model drafting) and of an unknown ``LLM_QUANT``, and the
-weight-only int8 boot (``LLM_QUANT=int8``).  Streaming is
-held in ``tests/test_torch_llm_stream.py``.
+yet (tensor parallelism, checkpoints, tokenizer directories, the draft
+model's checkpoint directory) and of an unknown ``LLM_QUANT``, the
+weight-only int8 boot (``LLM_QUANT=int8``), and the env boots of the solo
+engine (``LLM_MAX_BATCH=1``), the dense engine (``TPUSTACK_PAGED_KV=0``) and
+the draft-model drafter (``TPUSTACK_SPEC_DRAFT=tiny``), each serving the
+default boot's greedy content.  Streaming is held in
+``tests/test_torch_llm_stream.py``; the other engine knobs in
+``tests/test_torch_llm_modes.py``.
 """
 
 import json
@@ -208,16 +212,67 @@ def test_llm_quant_int8_boots_the_int8_model(monkeypatch):
     assert props["quant"] == "int8" and props["kv_quant"] == "int8"
 
 
-def test_unported_engines_and_drafters_refuse(monkeypatch, server):
-    with pytest.raises(NotImplementedError, match="LLM_MAX_BATCH"):
-        LLMServer(server.gen, server.tok, max_batch=1)
-    monkeypatch.setenv("TPUSTACK_PAGED_KV", "0")
-    with pytest.raises(NotImplementedError, match="TPUSTACK_PAGED_KV"):
-        LLMServer(server.gen, server.tok, max_batch=2)
-    monkeypatch.delenv("TPUSTACK_PAGED_KV")
+def _boot_content(monkeypatch, env):
+    """Greedy content of two prompts, plain and streamed, from an env boot
+    (``LLM_PRESET=tiny LLM_DEVICE=cpu`` plus ``env``), and its ``/props``."""
+    for k, v in dict({"LLM_PRESET": "tiny", "LLM_DEVICE": "cpu"}, **env).items():
+        monkeypatch.setenv(k, v)
+    srv = LLMServer()
+    url = f"http://127.0.0.1:{srv.start(host='127.0.0.1', port=0)}"
+    out = []
+    try:
+        for prompt in ("the quick brown fox jumps over the lazy dog", "hello"):
+            body = {"prompt": prompt, "n_predict": 12, "temperature": 0}
+            st, _, plain = _call(url + "/completion", body)
+            assert st == 200, plain
+            out.append(plain["content"])
+            req = urllib.request.Request(url + "/completion",
+                                         data=json.dumps(dict(body, stream=True)).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                events = [json.loads(line[6:]) for line in r.read().decode().split("\n")
+                          if line.startswith("data: ")]
+            out.append("".join(e["content"] for e in events))
+        props = _call(url + "/props")[2]
+    finally:
+        srv.stop()
+    return out, props
+
+
+@pytest.fixture(scope="module")
+def default_content():
+    mp = pytest.MonkeyPatch()
+    try:
+        return _boot_content(mp, {})[0]
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("env,engine,drafter", [
+    pytest.param({"LLM_MAX_BATCH": "1"}, "solo", None, id="solo"),
+    pytest.param({"TPUSTACK_PAGED_KV": "0"}, "dense", "prompt_lookup", id="dense"),
+    pytest.param({"TPUSTACK_SPEC_DRAFT": "tiny"}, "paged", "DraftModelDrafter", id="draft-model"),
+])
+def test_engines_and_drafters_boot_and_serve(monkeypatch, default_content, env, engine,
+                                             drafter):
+    """The solo engine, the dense engine and the draft-model drafter boot
+    from the environment and serve the default boot's greedy content,
+    plain and streamed."""
+    out, props = _boot_content(monkeypatch, env)
+    assert out == default_content
+    assert out[0] == out[1] and out[2] == out[3]  # streamed deltas = plain content
+    assert props["engine"] == engine and props["speculative"]["drafter"] == drafter
+    assert props["paged_kv"]["enabled"] == (engine == "paged")
+
+
+def test_checkpoint_directories_still_refuse(monkeypatch, server):
     monkeypatch.setenv("TPUSTACK_SPEC_DRAFT", "tiny")
-    with pytest.raises(NotImplementedError, match="TPUSTACK_SPEC_DRAFT"):
-        llm_server.build_spec()
+    monkeypatch.setenv("TPUSTACK_SPEC_DRAFT_DIR", "/some/draft")
+    with pytest.raises(NotImplementedError, match="TPUSTACK_SPEC_DRAFT_DIR"):
+        llm_server.build_spec(server.gen)
+    monkeypatch.setenv("TPUSTACK_SPEC_DRAFT", "tiny-ish")
+    with pytest.raises(ValueError, match="unknown preset"):
+        llm_server.build_spec(server.gen)
     monkeypatch.setenv("LLM_TOKENIZER_DIR", "/some/dir")
     with pytest.raises(NotImplementedError, match="LLM_TOKENIZER_DIR"):
         load_text_tokenizer(152064)

@@ -1,11 +1,16 @@
-"""Continuous batching over a paged KV pool: the port of
-``tpustack/models/llm_continuous.py::ContinuousEngine`` (paged engine only).
+"""Continuous batching: the port of
+``tpustack/models/llm_continuous.py::ContinuousEngine``.
 
 llama.cpp slot semantics: ``B`` persistent slots; a request joins at the
 next chunk boundary and a finished row is answered and its slot freed at
-once.  Each slot's cache line is a block table into the shared pool
-(``serving.kv_pool.PagedKVRuntime``); a prefix-cache hit installs the shared
-blocks in the table and prefills only the suffix.
+once.  With a paged runtime (``serving.kv_pool.PagedKVRuntime``, the
+default) each slot's cache line is a block table into the shared pool and a
+prefix-cache hit installs the shared blocks in the table and prefills only
+the suffix.  With ``paged=None`` (the ``TPUSTACK_PAGED_KV=0`` engine) each
+slot owns a dense ``[max_seq]`` cache line for the run, a dense prefix-store
+hit (``prefix=(n_cached, kv, key)``) restores the stored KV into the row
+before the suffix prefill, and ``kv_extract``/``on_prefill_kv`` hand a
+finished prefill's prompt KV to the store.
 
 The loop keeps ``depth`` plain decode chunks in flight (each chunk's first
 token is the previous chunk's last, on the device) and fetches one chunk
@@ -52,7 +57,23 @@ speculation state (drafts, the acceptance EMA) is not carried over.
 Parked entries are released when their request is cancelled and when a
 run fails.
 
-Left out: the host RAM tier, chunked prefill and the sanitizer.
+Chunked prefill (``prefill_chunk``, the ``TPUSTACK_PREFILL_CHUNK_TOKENS``
+knob; paged only): a prompt whose uncached remainder exceeds the chunk
+prefills ONE block-aligned chunk per admission (``_chunk_prefill_step``) and
+parks the rest as a warm continuation holding every block of its footprint
+(admission charged it up front), so decode waves of the other slots run
+between chunks; the final chunk is the ordinary warm start, which samples
+the first token as a monolithic prefill would.  Retire stats carry
+``prefill_chunks``, and run stats ``prefill_chunks`` when the knob is on.
+
+The host KV tier (``serving.kv_host_tier``): a request whose prefix match
+claimed spilled payloads carries ``host_restore=(block_ids, payloads)``;
+the engine writes them into their fresh blocks on its stream right before
+the warm start that reads them (``_dispatch_restore``) and keeps the
+payloads alive until that wave resolves; each resolve reports the wave's
+prefill wall per block to the tier's crossover guard.
+
+Left out: the sanitizer.
 """
 
 from __future__ import annotations
@@ -66,9 +87,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpustack_torch.models.llama import init_kv_caches
 from tpustack_torch.models.llm_generate import Generator, SampleConfig, resolve_paged_flash
 from tpustack_torch.serving.kv_pool import OutOfBlocks, eta_until_blocks
-from tpustack_torch.utils import get_logger
+from tpustack_torch.utils import get_logger, knobs
 
 log = get_logger("models.llm_continuous")
 
@@ -85,10 +107,14 @@ class SlotRequest:
     because engine threads do not inherit the handler's contextvars.
 
     ``prefix``: ``(n_cached, block_ids)``, shared pool blocks the lookup
-    already incref'd; ``kv_blocks``: fresh blocks the server allocated at
-    admission (None lets the engine allocate); ``on_prefill_blocks(ids)``:
-    the prompt's full blocks once prefill has landed (the cache insert).
-    ``speculative=False`` keeps this row from drafting."""
+    already incref'd (paged), or ``(n_cached, kv[, key])``, a dense
+    prefix-store hit's host KV; ``kv_blocks``: fresh blocks the server
+    allocated at admission (None lets the engine allocate);
+    ``on_prefill_blocks(ids)``: the prompt's full blocks once prefill has
+    landed (the paged cache insert); ``kv_extract``/``on_prefill_kv``: the
+    dense engine's insert, the ``(start, end)`` positions of the prompt's KV
+    handed over as host tensors.  ``speculative=False`` keeps this row from
+    drafting."""
 
     ids: List[int]
     max_new: int
@@ -111,6 +137,16 @@ class SlotRequest:
     # QoS priority class, "interactive" | "batch"; None (QoS off) neither
     # preempts nor can be preempted
     priority: Optional[str] = None
+    kv_extract: Optional[Tuple[int, int]] = None
+    on_prefill_kv: Optional[Callable[[list], None]] = None
+    # host-tier restore: fresh pool blocks (the tail of ``prefix[1]``) and
+    # the claimed host payloads the engine writes into them before the warm
+    # start; None = no host hit
+    host_restore: Optional[Tuple[List[int], list]] = None
+    # chunked-prefill continuation: (the original request's cache-hit
+    # length, chunk dispatches so far), carried across the park/resume hops
+    # a long prompt takes; None = not a continuation
+    chunk_cont: Optional[Tuple[int, int]] = None
 
 
 class _Slot:
@@ -140,32 +176,33 @@ class _Slot:
 class _PendingWave:
     """A dispatched admission group whose first tokens are not fetched yet."""
 
-    __slots__ = ("rows", "firsts_dev", "t0", "ready", "block_inserts")
+    __slots__ = ("rows", "firsts_dev", "t0", "ready", "block_inserts", "extracts", "keep")
 
-    def __init__(self, rows, firsts_dev, t0, ready, block_inserts=()):
+    def __init__(self, rows, firsts_dev, t0, ready, block_inserts=(), extracts=(), keep=()):
         self.rows = rows                    # [(slot, req, budget)]
         self.firsts_dev = firsts_dev
         self.t0 = t0
         self.ready = ready                  # CUDA event after the admission, or None
         self.block_inserts = list(block_inserts)  # [(req, prompt block ids)]
+        self.extracts = list(extracts)      # dense: [(req, device KV slices)]
+        self.keep = list(keep)              # host payloads the wave's restore reads
 
 
 class ContinuousEngine:
-    """Drives :class:`Generator`'s paged programs over persistent slots.
-    ``run(feed)`` decodes until every admitted request is answered and
-    ``feed()`` returns None."""
+    """Drives :class:`Generator`'s paged (``paged`` a runtime) or dense-slot
+    (``paged=None``) programs over persistent slots.  ``run(feed)`` decodes
+    until every admitted request is answered and ``feed()`` returns None."""
 
-    def __init__(self, gen: Generator, paged, slots: int = 8, chunk: int = 16,
+    def __init__(self, gen: Generator, paged=None, slots: int = 8, chunk: int = 16,
                  stop_tokens: Tuple[int, ...] = (), depth: int = 2,
                  paged_flash: Optional[bool] = None, spec=None,
                  on_spec: Optional[Callable[[int, int], None]] = None,
                  on_progress: Optional[Callable[[str], None]] = None, tracer=None,
                  flight=None, queue_depth: Optional[Callable[[], int]] = None, ledger=None,
                  preempt_hint: Optional[Callable[[], bool]] = None,
-                 on_preempt: Optional[Callable[[Optional[str]], None]] = None):
-        if paged is None:
-            raise ValueError("the port's engine is paged only: pass a PagedKVRuntime")
-        if gen.cfg.max_seq != paged.max_seq:
+                 on_preempt: Optional[Callable[[Optional[str]], None]] = None,
+                 prefill_chunk: Optional[int] = None):
+        if paged is not None and gen.cfg.max_seq != paged.max_seq:
             raise ValueError(f"paged runtime max_seq {paged.max_seq} != engine config "
                              f"{gen.cfg.max_seq}")
         self.gen = gen
@@ -199,12 +236,24 @@ class ContinuousEngine:
         self._parked: List[SlotRequest] = []
         self._preempted = self._resumed = 0
         self._last_wave_t: Optional[float] = None
-        self.paged_flash = (resolve_paged_flash(
-            gen.device, gen.cfg, gen.cache_dtype, paged.block,
-            self.spec.tokens if self.spec is not None else 0, slots)
-            if paged_flash is None else bool(paged_flash))
+        if paged is None:
+            self.paged_flash = False
+        elif paged_flash is None:
+            self.paged_flash = resolve_paged_flash(
+                gen.device, gen.cfg, gen.cache_dtype, paged.block,
+                self.spec.tokens if self.spec is not None else 0, slots)
+        else:
+            self.paged_flash = bool(paged_flash)
+        # chunked prefill (paged only): 0 keeps admission the monolithic one
+        if prefill_chunk is None:
+            prefill_chunk = knobs.get_int("TPUSTACK_PREFILL_CHUNK_TOKENS")
+        self._chunk_tokens = max(0, int(prefill_chunk)) if paged is not None else 0
+        self._prefill_chunks = 0
+        # host payloads of chunk-step restores, held until their copy ran
+        self._restore_keep: List[Tuple[object, list]] = []
         self._draft_memo: Dict[int, Tuple[Tuple[int, int, int], List[int]]] = {}
-        self._bt = np.zeros((slots, paged.blocks_per_seq), np.int32)
+        self._bt = (np.zeros((slots, paged.blocks_per_seq), np.int32) if paged is not None
+                    else None)
         self._slots_view = None
         self._pending: List[_PendingWave] = []
         self._to_park: List[int] = []
@@ -223,11 +272,18 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------ state
     def _fresh_state(self):
-        """Host per-slot state plus the device first-token column.  The pool
-        is the persistent store (``self.paged.arrays``), written in place."""
+        """Host per-slot state plus the device first-token column (and, for
+        the dense engine, the run's slot cache lines).  The pool is the
+        persistent store (``self.paged.arrays``), written in place."""
         B = self.B
-        self._bt[:] = 0
+        extra = {}
+        if self.paged is not None:
+            self._bt[:] = 0
+        else:
+            g = self.gen
+            extra["caches"] = init_kv_caches(g.cfg, B, g.cache_dtype, g.device)
         return {
+            **extra,
             "cur": np.zeros(B, np.int64),
             "active": np.zeros(B, np.int64),
             "temp": np.zeros(B, np.float32),
@@ -238,10 +294,21 @@ class ContinuousEngine:
         }
 
     # ------------------------------------------------------ paged plumbing
+    def _abandon_restore(self, req: SlotRequest) -> None:
+        """Hand a request's claimed host payloads back to the tier's ledger
+        as expired: they never reached the pool."""
+        if req.host_restore is not None:
+            tier = getattr(self.paged.cache, "host_tier", None)
+            if tier is not None:
+                tier.abandon(len(req.host_restore[1]))
+            req.host_restore = None
+
     def _release_blocks(self, req: Optional[SlotRequest]) -> None:
-        """Drop the references a not-yet-admitted request carries."""
-        if req is None:
+        """Drop the references a not-yet-admitted request carries (and
+        abandon its claimed host payloads)."""
+        if req is None or self.paged is None:
             return
+        self._abandon_restore(req)
         ids = list(req.kv_blocks or [])
         if req.prefix and req.prefix[0] > 0:
             ids += list(req.prefix[1])
@@ -290,10 +357,67 @@ class ContinuousEngine:
         return eta_until_blocks(rel, need_blocks)
 
     # ---------------------------------------------------------- admission
+    def _dispatch_restore(self, req: SlotRequest) -> list:
+        """Write the request's claimed host-tier payloads into their fresh
+        pool blocks (the tail of ``req.prefix[1]``, already in the slot's
+        table) on the engine's stream, ahead of the warm start whose gather
+        reads them.  Returns the payloads, which must outlive the copy."""
+        ids, payloads = req.host_restore
+        req.host_restore = None
+        if ids:
+            self.gen._restore_blocks_paged(self.paged.arrays, ids, payloads)
+        return list(payloads)
+
+    def _chunk_prefill_step(self, slots: List[_Slot], row, t0: float) -> None:
+        """Dispatch ONE block-aligned prefill chunk of a long prompt, then
+        park the rest as a warm continuation: it keeps every block of the
+        slot (prompt + budget, charged at admission) as its prefix, advanced
+        past the chunk.  The slot never activates (no sample), so between
+        chunks it is free for decode waves and other admissions; once the
+        remainder fits the chunk, admission falls through to the ordinary
+        warm start, which samples the first token as a monolithic prefill
+        would."""
+        g = self.gen
+        i, req, _ = row
+        s = slots[i]
+        rt = self.paged
+        plen = req.prefix[0] if req.prefix else 0
+        step = max(rt.block, (self._chunk_tokens // rt.block) * rt.block)
+        new_plen = plen + step
+        sbucket = g._bucket(step)
+        tokens = np.zeros((1, sbucket), np.int64)
+        tokens[0, :step] = req.ids[plen:new_plen]
+        if req.host_restore:
+            keep = self._dispatch_restore(req)
+            ready = torch.cuda.Event() if g.device.type == "cuda" else None
+            if ready is not None:
+                ready.record()
+            self._restore_keep.append((ready, keep))
+        g._prefill_chunk_paged(rt.arrays, self._bt[[i]], tokens, plen,
+                               np.array([new_plen], np.int64))
+        self._prefill_chunks += 1
+        orig_cached, n_chunks = req.chunk_cont if req.chunk_cont else (s.cached, 0)
+        if s.span is not None:
+            s.span.add_event("prefill_chunk", tokens=step, chunks=n_chunks + 1)
+            s.span.end()
+            s.span = None
+        if self.flight is not None:
+            self.flight.record("prefill_chunk", slot=i, chunk_tokens=step, prefilled=new_plen,
+                               prompt_tokens=len(req.ids), chunks=n_chunks + 1,
+                               wall_s=round(time.time() - t0, 6))
+        blocks = list(s.blocks)
+        s.req, s.done, s.pending = None, True, False
+        s.blocks, s.alloc = [], 0
+        self._bt[i, :] = 0
+        self._parked.append(dataclasses.replace(
+            req, prefix=(new_plen, blocks), kv_blocks=None, host_restore=None,
+            chunk_cont=(orig_cached, n_chunks + 1)))
+
     def _admit_dispatch(self, state, slots: List[_Slot], waves, gen_ctr: int) -> int:
         """Dispatch admissions without a host sync: one program per prompt
-        bucket group (from position 0), one per prefix hit; the host picks
-        up their first tokens later (``_resolve``)."""
+        bucket group (from position 0), one per prefix hit, one chunk per
+        long prompt under chunked prefill; the host picks up their first
+        tokens later (``_resolve``)."""
         g, c = self.gen, self.gen.cfg
         t0 = time.time()
         valid = []
@@ -320,8 +444,9 @@ class ContinuousEngine:
                 self._release_blocks(req)
                 self._retire(state, slots, i, self._live(slots), park=False)
                 continue
-            if not self._alloc_slot_blocks(i, s, req, budget):
+            if self.paged is not None and not self._alloc_slot_blocks(i, s, req, budget):
                 s.req, s.done = None, True
+                self._abandon_restore(req)  # the prefix references are already dropped
                 log.warning("paged admission: out of KV blocks for a %d-token request (%s)",
                             n_prompt + budget, self.paged.pool.stats())
                 if req.on_done is not None:
@@ -340,6 +465,22 @@ class ContinuousEngine:
         if self._on_progress is not None:
             self._on_progress("prefill")
 
+        if self._chunk_tokens > 0:
+            # a row whose block-aligned uncached remainder exceeds the chunk
+            # dispatches one chunk and parks; it is not in this wave's groups
+            step = max(self.paged.block,
+                       (self._chunk_tokens // self.paged.block) * self.paged.block)
+            rest = []
+            for row in valid:
+                plen = row[1].prefix[0] if row[1].prefix else 0
+                if plen % self.paged.block == 0 and len(row[1].ids) - plen > step:
+                    self._chunk_prefill_step(slots, row, t0)
+                else:
+                    rest.append(row)
+            valid = rest
+            if not valid:
+                return gen_ctr
+
         groups: Dict[int, list] = {}
         prefix_rows = []
         for row in valid:
@@ -357,6 +498,8 @@ class ContinuousEngine:
                     np.array([r.sample.greedy for _, r, _ in rows], bool))
 
         def block_inserts(rows):
+            if self.paged is None:
+                return []
             out = []
             for i, r, _ in rows:
                 n_full = len(r.ids) // self.paged.block
@@ -364,7 +507,20 @@ class ContinuousEngine:
                     out.append((r, list(slots[i].blocks[:n_full])))
             return out
 
-        def activate(rows, lengths, firsts, gens, temp, topk, greedy):
+        def extracts(rows):
+            # dense store inserts: the prompt's KV sliced out of the freshly
+            # spliced slot lines, fetched at resolve (prefill has landed)
+            if self.paged is not None:
+                return []
+            out = []
+            for i, r, _ in rows:
+                if r.kv_extract is not None and r.on_prefill_kv is not None:
+                    lo, hi = r.kv_extract
+                    if hi > lo:
+                        out.append((r, g._extract_kv(state["caches"], i, lo, hi - lo)))
+            return out
+
+        def activate(rows, lengths, firsts, gens, temp, topk, greedy, keep=()):
             ids = [i for i, _, _ in rows]
             state["cur"][ids] = lengths
             state["active"][ids] = 1
@@ -380,9 +536,10 @@ class ContinuousEngine:
             if g.device.type == "cuda":
                 ready = torch.cuda.Event()
                 ready.record()
-            self._pending.append(_PendingWave(rows, firsts, t0, ready, block_inserts(rows)))
+            self._pending.append(_PendingWave(rows, firsts, t0, ready, block_inserts(rows),
+                                              extracts(rows), keep))
 
-        pool = self.paged.arrays
+        pool = self.paged.arrays if self.paged is not None else None
         for row in prefix_rows:
             i, req, _ = row
             plen = req.prefix[0]
@@ -391,10 +548,19 @@ class ContinuousEngine:
             tokens = np.zeros((1, sbucket), np.int64)
             tokens[0, :n_prompt - plen] = req.ids[plen:]
             lengths, seeds, temp, topk, greedy = row_meta([row])
-            firsts, gens = g._admit_prefix_paged(
-                tokens, pool, self._bt[[i]], plen, lengths,
-                np.array([slots[i].alloc], np.int64), seeds, temp, topk, greedy)
-            activate([row], lengths, firsts, gens, temp, topk, greedy)
+            keep = ()
+            if self.paged is not None:
+                if req.host_restore:
+                    keep = self._dispatch_restore(req)
+                firsts, gens = g._admit_prefix_paged(
+                    tokens, pool, self._bt[[i]], plen, lengths,
+                    np.array([slots[i].alloc], np.int64), seeds, temp, topk, greedy)
+            else:
+                prefix_dev = g._prefix_to_device(
+                    req.prefix[1], req.prefix[2] if len(req.prefix) > 2 else None)
+                firsts, gens = g._admit_prefix(tokens, state["caches"], plen, lengths, i,
+                                               prefix_dev, seeds, temp, topk, greedy)
+            activate([row], lengths, firsts, gens, temp, topk, greedy, keep)
 
         for bucket, rows in sorted(groups.items()):
             tokens = np.zeros((len(rows), bucket), np.int64)
@@ -402,9 +568,14 @@ class ContinuousEngine:
                 tokens[j, :len(r.ids)] = r.ids
             ids = [i for i, _, _ in rows]
             lengths, seeds, temp, topk, greedy = row_meta(rows)
-            firsts, gens = g._admit_fused_paged(
-                tokens, pool, self._bt[ids], lengths,
-                np.array([slots[i].alloc for i in ids], np.int64), seeds, temp, topk, greedy)
+            if self.paged is not None:
+                firsts, gens = g._admit_fused_paged(
+                    tokens, pool, self._bt[ids], lengths,
+                    np.array([slots[i].alloc for i in ids], np.int64), seeds, temp, topk,
+                    greedy)
+            else:
+                firsts, gens = g._admit_fused(tokens, state["caches"], lengths, ids, seeds,
+                                              temp, topk, greedy)
             activate(rows, lengths, firsts, gens, temp, topk, greedy)
         return gen_ctr
 
@@ -414,11 +585,29 @@ class ContinuousEngine:
         rows that already ended."""
         firsts = [int(t) for t in wave.firsts_dev.cpu().tolist()]
         t_first = time.time() - wave.t0
+        wave.keep.clear()  # the fetch synced past the restore that read them
+        tier = (getattr(self.paged.cache, "host_tier", None)
+                if self.paged is not None and self.paged.cache is not None else None)
+        if tier is not None:
+            # the crossover's recompute cost: this wave prefilled its rows'
+            # uncached tokens in t_first
+            n_new = sum(max(0, len(r.ids) - slots[i].cached) for i, r, _ in wave.rows)
+            tier.note_prefill(self.paged.pool.blocks_for(n_new), t_first)
+        if self.flight is not None:
+            self.flight.record("prefill", rows=len(wave.rows),
+                               prompt_tokens=sum(len(r.ids) for _, r, _ in wave.rows),
+                               cached_tokens=sum(slots[i].cached for i, _, _ in wave.rows),
+                               prefill_s=round(t_first, 6))
         for req, ids in wave.block_inserts:
             try:  # a failing cache insert must not fail the run for every peer
                 req.on_prefill_blocks(ids)
             except Exception:
                 log.exception("on_prefill_blocks failed (prefix-cache insert skipped)")
+        for req, dev in wave.extracts:
+            try:  # the firsts fetch proved prefill landed: this costs the copy
+                req.on_prefill_kv([{k: v.cpu() for k, v in layer.items()} for layer in dev])
+            except Exception:
+                log.exception("on_prefill_kv failed (prefix-cache insert skipped)")
         live = self._live(slots)
         for (i, req, budget), first in zip(wave.rows, firsts):
             s = slots[i]
@@ -469,7 +658,7 @@ class ContinuousEngine:
             s.span.set_attribute("generated_tokens", len(out))
             s.span.end()
             s.span = None
-        if s.blocks:
+        if self.paged is not None and s.blocks:
             if self.ledger is not None and req is not None and req.tenant is not None:
                 # blocks held x wall since allocation, per reference: a
                 # shared prefix block bills each tenant for its own hold
@@ -488,7 +677,7 @@ class ContinuousEngine:
         if req is not None and req.on_done is not None:
             dt = time.time() - s.t0
             decode_s = max(dt - s.prefill_s, 0.0)
-            req.on_done(list(out), {
+            st = {
                 "batch": batch_size,
                 "prompt_tokens": len(req.ids),
                 "generated_tokens": len(out),
@@ -497,7 +686,14 @@ class ContinuousEngine:
                 "prefill_s": s.prefill_s,
                 "decode_s": decode_s,
                 "tokens_per_s": len(out) / max(decode_s, 1e-9) if out else 0.0,
-            })
+            }
+            if req.chunk_cont is not None:
+                # a chunked prefill's continuation: the original request's
+                # cache-hit split, and the chunk waves the prompt took
+                orig_cached, n_chunks = req.chunk_cont
+                st.update(cached_tokens=orig_cached, prefill_tokens=len(req.ids) - orig_cached,
+                          prefill_chunks=n_chunks)
+            req.on_done(list(out), st)
 
     # ------------------------------------------------------ QoS preemption
     def _maybe_preempt(self, slots: List[_Slot]) -> None:
@@ -505,7 +701,8 @@ class ContinuousEngine:
         request waits and every slot is busy; the next ``admit_free`` feeds
         the freed slot.  At most one park per boundary, and none while a
         park or an admission wave is pending."""
-        if self._preempt_hint is None or self._to_park or self._pending:
+        if (self.paged is None or self._preempt_hint is None or self._to_park
+                or self._pending):
             return
         if any(s.req is None for s in slots):
             return  # a free slot exists: nothing to preempt for
@@ -532,7 +729,9 @@ class ContinuousEngine:
         chunks in flight write past ``plen`` is overwritten by that suffix
         prefill and the decode after it before any position is read."""
         s = slots[i]
-        req, prior, orig_budget, orig_cached = s.req, list(s.out), s.budget, s.cached
+        req, prior, orig_budget = s.req, list(s.out), s.budget
+        # a chunked-prefill continuation carries the original cache-hit length
+        orig_cached = req.chunk_cont[0] if req.chunk_cont is not None else s.cached
         blocks = list(s.blocks)
         # the parked entry inherits the slot's pool references: no decref
         s.blocks, s.alloc = [], 0
@@ -571,7 +770,8 @@ class ContinuousEngine:
             # history-derived seed (deterministic, not the uninterrupted chain)
             seed=None if req.seed is None else (req.seed + plen) % (2 ** 32),
             prefix=(plen, blocks), span_ctx=req.span_ctx, speculative=req.speculative,
-            tenant=req.tenant, t_kv_alloc=req.t_kv_alloc, priority=req.priority))
+            tenant=req.tenant, t_kv_alloc=req.t_kv_alloc, priority=req.priority,
+            chunk_cont=req.chunk_cont))
         self._preempted += 1
         if self.flight is not None:
             self.flight.record("preempt", slot=i, priority=req.priority, tenant=req.tenant,
@@ -637,6 +837,7 @@ class ContinuousEngine:
         admitted = 0
         self._to_park, self._pending, self._parked = [], [], []
         self._preempted = self._resumed = 0
+        self._prefill_chunks = 0
         self._retired_tokens = 0
         self._reset_counters()
 
@@ -673,7 +874,7 @@ class ContinuousEngine:
                 if s.span is not None:
                     s.span.end(status="error")
                     s.span = None
-                if s.blocks:
+                if self.paged is not None and s.blocks:
                     try:
                         self.paged.pool.decref(s.blocks)
                     except Exception:
@@ -684,6 +885,7 @@ class ContinuousEngine:
             # parked entries hold references too: none may outlive the run
             self._release_parked()
             self._slots_view = None
+            self._restore_keep.clear()
 
         dt = time.time() - t_start
         n_tok = self._retired_tokens
@@ -691,13 +893,21 @@ class ContinuousEngine:
                  "tokens_per_s": n_tok / dt if dt > 0 else 0.0}
         stats.update({
             "decode_weight_passes": self._plain_steps + self._spec_dispatches,
-            "decode_kernel": "paged_flash" if self.paged_flash else "gather",
-            "kernel_gather_dispatches": self._gather_dispatches,
-            "kernel_paged_flash_dispatches": self._flash_dispatches,
-            "kernel_forward_steps": self._forward_steps,
             "preempted": self._preempted,
             "resumed": self._resumed,
         })
+        if self.paged is not None:
+            # the decode-attention body and the dispatch split (a dense
+            # engine launches no paged kernel and reports none of these)
+            stats.update({
+                "decode_kernel": "paged_flash" if self.paged_flash else "gather",
+                "kernel_gather_dispatches": self._gather_dispatches,
+                "kernel_paged_flash_dispatches": self._flash_dispatches,
+                "kernel_forward_steps": self._forward_steps,
+            })
+            if self._chunk_tokens > 0:
+                # present only with chunked prefill armed, as in the JAX engine
+                stats["prefill_chunks"] = self._prefill_chunks
         if self.spec is not None:
             stats.update({
                 "spec_drafted_tokens": self._spec_drafted,
@@ -721,11 +931,16 @@ class ContinuousEngine:
         while len(chain) < self.depth and any(dispatch_ok(s) for s in slots):
             snapshot = [(i, s.gen_id, s.dispatched) for i, s in enumerate(slots)
                         if dispatch_ok(s)]
-            toks, last, state["cur"] = g._decode_scan_paged(
-                state["first"], state["cur"], state["active"], self.paged.arrays, self._bt,
-                state["gens"], state["temp"], state["topk"], state["greedy"], self.chunk,
-                flash=self.paged_flash)
-            self._count_dispatch(self.chunk)
+            if self.paged is not None:
+                toks, last, state["cur"] = g._decode_scan_paged(
+                    state["first"], state["cur"], state["active"], self.paged.arrays, self._bt,
+                    state["gens"], state["temp"], state["topk"], state["greedy"], self.chunk,
+                    flash=self.paged_flash)
+                self._count_dispatch(self.chunk)
+            else:
+                toks, last, state["cur"] = g._decode_scan_cont(
+                    state["first"], state["cur"], state["active"], state["caches"],
+                    state["gens"], state["temp"], state["topk"], state["greedy"], self.chunk)
             state["first"] = last
             self._plain_steps += self.chunk
             for i, _, _ in snapshot:
@@ -733,7 +948,10 @@ class ContinuousEngine:
             chain.append((toks, snapshot))
 
     def _mark_wave(self) -> None:
-        """One wave's tokens reached the host (the clock of the release ETA)."""
+        """One wave's tokens reached the host (the clock of the release ETA);
+        chunk-step restore payloads whose copy has run are let go."""
+        self._restore_keep = [(ev, keep) for ev, keep in self._restore_keep
+                              if ev is not None and not ev.query()]
         now = time.time()
         with self._marks_lock:
             if self._wave_ctr == 0:
@@ -776,9 +994,10 @@ class ContinuousEngine:
                "tokens": int(tokens), "weight_passes": int(weight_passes),
                "drafted": int(drafted), "accepted": int(accepted),
                "wave_s": (round(now - self._last_wave_t, 6)
-                          if self._last_wave_t is not None else None),
-               "kv_free": self.paged.pool.n_free, "kv_used": self.paged.pool.n_used,
-               "kernel": "paged_flash" if self.paged_flash else "gather"}
+                          if self._last_wave_t is not None else None)}
+        if self.paged is not None:
+            rec.update(kv_free=self.paged.pool.n_free, kv_used=self.paged.pool.n_used,
+                       kernel="paged_flash" if self.paged_flash else "gather")
         self._last_wave_t = now
         if self._queue_depth_fn is not None:
             rec["queue_depth"] = int(self._queue_depth_fn())
@@ -927,11 +1146,16 @@ class ContinuousEngine:
             draft[i, :len(toks)] = toks
             dlen[i] = len(toks)
             rows.append((i, slots[i].gen_id))
-        block, accs, last, state["cur"] = g._spec_verify_paged(
-            state["first"], draft, dlen, state["cur"], state["active"], self.paged.arrays,
-            self._bt, state["gens"], state["temp"], state["topk"], state["greedy"], K,
-            flash=self.paged_flash)
-        self._count_dispatch(1)
+        if self.paged is not None:
+            block, accs, last, state["cur"] = g._spec_verify_paged(
+                state["first"], draft, dlen, state["cur"], state["active"], self.paged.arrays,
+                self._bt, state["gens"], state["temp"], state["topk"], state["greedy"], K,
+                flash=self.paged_flash)
+            self._count_dispatch(1)
+        else:
+            block, accs, last, state["cur"] = g._spec_verify_cont(
+                state["first"], draft, dlen, state["cur"], state["active"], state["caches"],
+                state["gens"], state["temp"], state["topk"], state["greedy"], K)
         state["first"] = last
         self._spec_dispatches += 1
         if self._on_progress is not None:

@@ -78,6 +78,38 @@ CATALOG: Tuple[MetricSpec, ...] = (
                "Prompt tokens served from the prefix cache per request "
                "(prefill FLOPs skipped; 0 on a miss).",
                buckets=TOKEN_BUCKETS, unit="tokens"),
+    MetricSpec("tpustack_llm_prefix_cache_evictions_total", "counter",
+               "Cached chunks evicted under capacity pressure (LRU leaves).",
+               unit="total"),
+    MetricSpec("tpustack_llm_prefix_cache_bytes", "gauge",
+               "Resident bytes of cached KV segments (host RAM, the dense "
+               "store).",
+               unit="bytes"),
+    MetricSpec("tpustack_llm_prefix_cache_entries", "gauge",
+               "Chunk nodes resident in the dense radix store.",
+               unit="entries"),
+    MetricSpec("tpustack_llm_kv_host_spilled_blocks_total", "counter",
+               "Prefix blocks copied device->host at eviction time (the "
+               "block's device memory is freed; its bytes live on in the host "
+               "arena).",
+               unit="total"),
+    MetricSpec("tpustack_llm_kv_host_restored_blocks_total", "counter",
+               "Host-tier blocks copied back into fresh pool blocks on a warm "
+               "prefix match: a block of prefill the engine did not pay for.",
+               unit="total"),
+    MetricSpec("tpustack_llm_kv_host_expired_blocks_total", "counter",
+               "Host-tier blocks dropped under the arena's byte cap (LRU) or "
+               "retired with their trie subtree: their next reuse is a full "
+               "recompute.",
+               unit="total"),
+    MetricSpec("tpustack_llm_kv_host_resident_bytes", "gauge",
+               "Bytes resident in the host KV arena (<= "
+               "TPUSTACK_KV_HOST_TIER_MB).",
+               unit="bytes"),
+    MetricSpec("tpustack_llm_prefill_chunks_total", "counter",
+               "Non-final chunked-prefill dispatches (each parks its slot "
+               "again instead of monopolising the wave).",
+               unit="total"),
     MetricSpec("tpustack_llm_kv_free_blocks", "gauge",
                "Free blocks in the paged KV pool — what capacity-true "
                "admission checks against (plus evictable cached blocks).",

@@ -31,6 +31,16 @@ def takes_head_dim(d: int) -> bool:
     return d % 8 == 0 and 0 < d <= MAX_HEAD_DIM
 
 
+def contract_violation(dtype: torch.dtype, head_dim: int) -> Optional[str]:
+    """What keeps CUDA tensors of ``dtype`` and ``head_dim`` off the kernel
+    (the checks :func:`flash_attention` makes at launch), or None."""
+    if dtype != torch.bfloat16:
+        return f"bfloat16 q/k/v only (got {dtype})"
+    if not takes_head_dim(head_dim):
+        return f"head dims up to {MAX_HEAD_DIM}, multiples of 8 (got {head_dim})"
+    return None
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, S, H, D]")
@@ -97,7 +107,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors must be contiguous bf16 with ``D <= 128`` a multiple of 8;
     the kernel launches on the current stream and ``flash_attention.launches``
-    counts each launch.  CPU tensors take :func:`flash_attention_ref`."""
+    counts each launch, ``flash_attention.route_launches`` by the TPU kernel
+    it stands for: ``"stream"`` (``_attn_kernel_stream``) when ``kv_len`` is
+    given, ``"panel"`` (``_attn_kernel``) otherwise.  CPU tensors take
+    :func:`flash_attention_ref`."""
     _check_shapes(q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
@@ -132,7 +145,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches["stream" if kv_len is not None else "panel"] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Zero ``flash_attention.launches`` and its per-route split."""
+    flash_attention.launches = 0
+    flash_attention.route_launches = {"panel": 0, "stream": 0}
+
+
+reset_launches()

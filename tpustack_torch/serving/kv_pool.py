@@ -2,9 +2,10 @@
 the runtime that holds the device pool tensors.
 
 A copy of ``tpustack/serving/kv_pool.py`` (``KVBlockPool``,
-``PagedPrefixCache``, ``PagedKVRuntime``, ``OutOfBlocks``,
-``eta_until_blocks``) without the host RAM tier, the profiler hooks and the
-sanitizer guards.  Pure Python and numpy.
+``PagedPrefixCache`` with its host-tier hooks, ``PagedKVRuntime``,
+``OutOfBlocks``, ``eta_until_blocks``) without the working-set profiler
+hooks, the warm/cold eviction split and the sanitizer guards.  Pure Python
+and numpy; the host tier (``serving.kv_host_tier``) copies blocks.
 
 Every layer's K/V lives in pool tensors ``[n_blocks, block, Hkv, D]``
 (``models.llama.init_kv_pool``); a sequence's cache line is a block table.
@@ -13,6 +14,12 @@ prefill's full blocks enter a radix trie keyed by token ids, and a later
 request sharing the prefix points its table at the same physical blocks (a
 refcount increment, no copy).  Blocks free only at refcount 0.  Block 0 is
 reserved: idle table entries point at it and nothing writes it.
+
+With a host tier attached (``PagedPrefixCache.host_tier``), an evicted
+block's bytes spill to host RAM instead of dying: the node stays in the trie
+tagged ``tier="host"``, a later match claims the payloads of the contiguous
+host chunks past the device frontier (``PagedMatch.host_payloads``), and the
+restoring request's insert re-promotes the stubs onto fresh blocks.
 
 Thread-safe: the server's handler threads admit and read stats while the
 engine thread allocates and frees at wave boundaries.
@@ -166,13 +173,19 @@ class KVBlockPool:
 
 class PagedMatch:
     """A paged lookup: ``length`` cached tokens (whole blocks, 0 on a miss)
-    and the matched ``block_ids``, one reference each owned by the caller."""
+    and the matched ``block_ids``, one reference each owned by the caller.
+    ``host_payloads`` (host-tier caches only): claimed host payloads of the
+    blocks right after the device match, in prefix order, owned outright by
+    the caller, which restores them into fresh pool blocks or hands them
+    back with ``HostKVTier.abandon``."""
 
-    __slots__ = ("length", "block_ids")
+    __slots__ = ("length", "block_ids", "host_payloads")
 
-    def __init__(self, length: int, block_ids: List[int]):
+    def __init__(self, length: int, block_ids: List[int],
+                 host_payloads: Optional[list] = None):
         self.length = length
         self.block_ids = block_ids
+        self.host_payloads = host_payloads or []
 
 
 _NODE_UIDS = itertools.count(1)
@@ -182,7 +195,7 @@ class _Node:
     """One block of a cached prefix: edge label = its token ids, payload =
     the physical block id (the cache holds one pool reference on it)."""
 
-    __slots__ = ("key", "parent", "children", "block_id", "last_used", "uid")
+    __slots__ = ("key", "parent", "children", "block_id", "last_used", "uid", "tier")
 
     def __init__(self, key: Tuple[int, ...], parent: Optional["_Node"], block_id: int):
         self.key = key
@@ -191,6 +204,10 @@ class _Node:
         self.block_id = block_id
         self.last_used = 0
         self.uid = next(_NODE_UIDS)
+        # "hbm": block_id is a live pool block the cache holds a reference
+        # on; "host": block_id is -1 and the bytes live in the host tier
+        # (or nowhere: a claimed or expired stub a later insert re-promotes)
+        self.tier = "hbm"
 
 
 class PagedPrefixCache:
@@ -200,11 +217,17 @@ class PagedPrefixCache:
     its slot's decode writes).  Matches are capped at ``len(ids) - 1``
     tokens: at least one token must be prefilled for next-token logits.
     Eviction drops least-recently-used leaves whose block only the cache
-    references; a block a live slot shares is never reclaimed."""
+    references; a block a live slot shares is never reclaimed.
 
-    def __init__(self, pool: KVBlockPool):
+    ``on_evict(n)``: called after an eviction pass freed ``n`` blocks (the
+    server's counter).  ``host_tier``: an optional
+    ``serving.kv_host_tier.HostKVTier``; None keeps every path tier-free."""
+
+    def __init__(self, pool: KVBlockPool, on_evict=None):
         self.pool = pool
         self.block = pool.block
+        self.on_evict = on_evict
+        self.host_tier = None
         self._root = _Node((), None, -1)
         self._lock = threading.Lock()
         self._tick = 0
@@ -214,33 +237,63 @@ class PagedPrefixCache:
         self.evictions = 0
         self.hit_tokens = 0
         self.inserted_tokens = 0
+        self.host_hits = 0
+        self.host_hit_tokens = 0
 
     def match(self, ids: List[int]) -> PagedMatch:
         """Longest cached prefix of ``ids`` (whole blocks, at most
-        ``len(ids) - 1`` tokens); increfs every matched block."""
+        ``len(ids) - 1`` tokens); increfs every matched block.
+
+        With a host tier, the walk goes on past the device frontier through
+        contiguous ``tier="host"`` chunks and, when the tier's crossover
+        says a copy beats a recompute, claims their payloads (the nodes stay
+        as stubs; the restoring request's insert re-promotes them)."""
         max_blocks = max(0, (len(ids) - 1) // self.block)
+        host_payloads: list = []
         with self._lock:
             self._tick += 1
             node, depth, blocks = self._root, 0, []
             while depth < max_blocks:
                 child = node.children.get(tuple(ids[depth * self.block:(depth + 1) * self.block]))
-                if child is None:
+                if child is None or child.tier != "hbm":
                     break
                 child.last_used = self._tick
                 blocks.append(child.block_id)
                 node, depth = child, depth + 1
-            if not blocks:
+            tier = self.host_tier
+            if tier is not None and depth < max_blocks:
+                hnode, hdepth, chain = node, depth, []
+                while hdepth < max_blocks:
+                    c = hnode.children.get(tuple(ids[hdepth * self.block:
+                                                     (hdepth + 1) * self.block]))
+                    if c is None or c.tier != "host":
+                        break
+                    chain.append(c)
+                    hnode, hdepth = c, hdepth + 1
+                if chain and tier.should_restore(len(chain)):
+                    for c in chain:
+                        payload = tier.claim(c)
+                        if payload is None:
+                            break  # a stub: the chunk's bytes are gone
+                        host_payloads.append(payload)
+                        c.last_used = self._tick
+            if not blocks and not host_payloads:
                 self.misses += 1
                 return PagedMatch(0, [])
-            self.pool.incref(blocks)
+            if blocks:
+                self.pool.incref(blocks)
             self.hits += 1
             self.hit_tokens += depth * self.block
-            return PagedMatch(depth * self.block, blocks)
+            if host_payloads:
+                self.host_hits += 1
+                self.host_hit_tokens += len(host_payloads) * self.block
+            return PagedMatch(depth * self.block, blocks, host_payloads)
 
     def insert(self, ids: List[int], block_ids: Sequence[int]) -> int:
         """Record ``block_ids`` for the first ``len(block_ids)`` whole blocks
-        of ``ids``; newly recorded blocks gain the cache's reference.
-        Returns the newly cached tokens."""
+        of ``ids``; newly recorded blocks gain the cache's reference, and a
+        spilled or stub chunk is re-promoted onto the caller's block (its
+        stale host copy dropped).  Returns the newly cached tokens."""
         if len(block_ids) * self.block > len(ids):
             raise ValueError(f"{len(block_ids)} blocks cover {len(block_ids) * self.block} "
                              f"tokens > prompt {len(ids)}")
@@ -257,37 +310,92 @@ class PagedPrefixCache:
                     node.children[key] = child
                     self.entries += 1
                     new_tokens += self.block
+                elif child.tier != "hbm":
+                    self.pool.incref([bid])
+                    child.block_id = bid
+                    child.tier = "hbm"
+                    if self.host_tier is not None:
+                        self.host_tier.drop(child)
+                    self.entries += 1
+                    new_tokens += self.block
                 child.last_used = self._tick
                 node = child
             self.inserted_tokens += new_tokens
         return new_tokens
 
+    @staticmethod
+    def _hbm_children(node: _Node) -> bool:
+        """Any direct child still holding a pool block: host stubs do not
+        keep a node from being evicted."""
+        return any(c.tier == "hbm" for c in node.children.values())
+
+    def evictable_blocks(self) -> int:
+        """Blocks the cache could release now: device nodes whose block only
+        the cache references."""
+        with self._lock:
+            return sum(1 for n in self._walk()
+                       if n.tier == "hbm" and self.pool.refcount(n.block_id) == 1)
+
     def evict(self, need_blocks: int) -> int:
         """Release up to ``need_blocks`` blocks, LRU leaves first (a parent
-        becomes a candidate once its children are gone); returns blocks
-        freed."""
-        freed = 0
+        becomes a candidate once it has no device children); returns blocks
+        freed.  With a host tier, each victim's bytes are offered to host
+        RAM first: kept, the node turns ``tier="host"``; declined, it leaves
+        the trie with its spilled descendants."""
+        freed = spilled = 0
+        tier = self.host_tier
         with self._lock:
             heap = [(n.last_used, n.uid, n) for n in self._walk()
-                    if not n.children and self.pool.refcount(n.block_id) == 1]
+                    if n.tier == "hbm" and not self._hbm_children(n)
+                    and self.pool.refcount(n.block_id) == 1]
             heapq.heapify(heap)
             while heap and freed < need_blocks:
                 _, _, leaf = heapq.heappop(heap)
-                if (leaf.children or leaf.parent.children.get(leaf.key) is not leaf
+                if (leaf.tier != "hbm" or self._hbm_children(leaf)
+                        or leaf.parent.children.get(leaf.key) is not leaf
                         or self.pool.refcount(leaf.block_id) != 1):
                     continue
-                leaf.parent.children.pop(leaf.key)
+                bid = leaf.block_id
+                kept = False
+                if tier is not None:
+                    payload = tier.snapshot_block(bid)
+                    if payload is None:
+                        tier.decline()
+                    else:
+                        kept = tier.offer(leaf, payload)
+                if kept:
+                    spilled += 1
+                    leaf.block_id = -1
+                    leaf.tier = "host"
+                else:
+                    leaf.parent.children.pop(leaf.key)
+                    self._drop_host_subtree(leaf)
                 self.entries -= 1
                 self.evictions += 1
-                freed += self.pool.decref([leaf.block_id])
+                freed += self.pool.decref([bid])
                 parent = leaf.parent
-                if (parent is not self._root and not parent.children
+                if (parent is not self._root and parent.tier == "hbm"
+                        and not self._hbm_children(parent)
                         and self.pool.refcount(parent.block_id) == 1):
                     heapq.heappush(heap, (parent.last_used, parent.uid, parent))
         if freed:
-            log.info("paged prefix cache evicted %d block(s) (%d tokens)", freed,
-                     freed * self.block)
+            log.info("paged prefix cache evicted %d block(s) (%d tokens, %d spilled to host)",
+                     freed, freed * self.block, spilled)
+            if self.on_evict is not None:
+                self.on_evict(freed)
         return freed
+
+    def _drop_host_subtree(self, node: _Node) -> None:
+        """Retire the tier entries of every host node under ``node``
+        (inclusive), which left the trie; caller holds ``_lock``."""
+        if self.host_tier is None:
+            return
+        stack = [node]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.tier == "host":
+                self.host_tier.drop(n)
 
     def _walk(self):
         stack = list(self._root.children.values())
@@ -297,17 +405,20 @@ class PagedPrefixCache:
             yield n
 
     def clear(self) -> int:
-        """Drop every node (decref all); returns blocks freed."""
+        """Drop every node (decref the device ones, expire the host ones);
+        returns blocks freed."""
         with self._lock:
-            ids = [n.block_id for n in self._walk()]
+            ids = [n.block_id for n in self._walk() if n.tier == "hbm"]
             self._root = _Node((), None, -1)
             self.entries = 0
+            if self.host_tier is not None:
+                self.host_tier.clear()
             return self.pool.decref(ids) if ids else 0
 
     def stats(self) -> Dict[str, object]:
         with self._lock:
             lookups = self.hits + self.misses
-            return {
+            out = {
                 "enabled": True,
                 "paged": True,
                 "block_tokens": self.block,
@@ -319,6 +430,12 @@ class PagedPrefixCache:
                 "cached_tokens_served": self.hit_tokens,
                 "inserted_tokens": self.inserted_tokens,
             }
+        tier = self.host_tier
+        if tier is not None:
+            out["host_hits"] = self.host_hits
+            out["host_hit_tokens"] = self.host_hit_tokens
+            out["host_tier"] = tier.stats()
+        return out
 
 
 class PagedKVRuntime:

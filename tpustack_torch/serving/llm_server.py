@@ -23,15 +23,34 @@ server's), served by ``http.server.ThreadingHTTPServer``:
   autoscaler calls (``X-Admin-Token`` must equal ``TPUSTACK_ADMIN_TOKEN``;
   403 when the knob is unset); body ``{"undrain": true}`` reverses it
 
-Every completion goes through the paged continuous engine
-(``models.llm_continuous``): slots hold block tables into one KV pool,
-admission is allocation (a request that the pool cannot cover, even after
-evicting unreferenced cached blocks, gets 429 with ``Retry-After`` from the
-in-flight requests' projected block release), a prefix-cache hit shares the
-cached blocks, and prompt-lookup speculation is on.  One engine thread runs
-the engine whenever requests are queued; handler threads wait on their
-request.  Streams ride the same engine: each fetched wave hands a row its
-tokens, and a stream's client that disconnects cancels its row.
+The engines, as the JAX server picks them:
+
+- **Paged** (the default): the continuous engine
+  (``models.llm_continuous``) over one KV pool; slots hold block tables,
+  admission is allocation (a request that the pool cannot cover, even after
+  evicting unreferenced cached blocks, gets 429 with ``Retry-After`` from
+  the in-flight requests' projected block release), a prefix-cache hit
+  shares the cached blocks, and speculation is on.  With
+  ``TPUSTACK_KV_HOST_TIER_MB`` evicted prefix blocks spill to host RAM and a
+  later hit restores them (``serving.kv_host_tier``); with
+  ``TPUSTACK_PREFILL_CHUNK_TOKENS`` a long prompt prefills in chunks
+  between decode waves.
+- **Dense batched** (``TPUSTACK_PAGED_KV=0``): the same engine over a dense
+  cache line per slot, with the dense host prefix store
+  (``serving.prefix_cache``, ``TPUSTACK_PREFIX_CACHE_MB`` /
+  ``TPUSTACK_PREFIX_CACHE_CHUNK``).
+- **Solo** (``LLM_MAX_BATCH=1``): one request at a time on the device, the
+  fused chunked decode (``Generator.generate_fused``; streams decode one
+  token per step), with the dense prefix store; requests wait on the device
+  lock (``solo_waiting``, counted in the queue depth) and a deadline names
+  ``queued`` or ``decode``.
+
+In the batched engines one engine thread runs the engine whenever requests
+are queued; handler threads wait on their request.  Streams ride the same
+engine: each fetched wave hands a row its tokens, and a stream's client that
+disconnects cancels its row.  ``TPUSTACK_SPEC_DRAFT=<preset>`` drafts with a
+second model drawn from seed 0 (``DraftModelDrafter``) instead of prompt
+lookup.
 
 The resilience layer (``serving.resilience``) is the JAX server's:
 ``TPUSTACK_MAX_QUEUE_DEPTH`` sheds with 429, ``TPUSTACK_REQUEST_TIMEOUT_S``
@@ -53,19 +72,23 @@ interactive request waits for a slot.
 Env (the JAX server's names): ``LLM_PRESET`` (``qwen25_7b`` | ``llama2_7b``
 | ``tiny``), ``LLM_CTX`` (4096), ``LLM_QUANT`` (``int8``: weight-only
 int8, ``ops.quant``), ``LLM_KV_QUANT`` (``int8``),
-``LLM_MAX_BATCH`` (8 slots), ``LLM_CHUNK`` / ``LLM_ENGINE_CHUNK`` (engine
-chunk ``min(LLM_CHUNK, 16)``), ``TPUSTACK_KV_BLOCK``,
+``LLM_MAX_BATCH`` (8 slots; 1 is the solo engine), ``LLM_CHUNK`` /
+``LLM_ENGINE_CHUNK`` (engine chunk ``min(LLM_CHUNK, 16)``; the solo decode
+chunk is ``LLM_CHUNK``), ``TPUSTACK_PAGED_KV``, ``TPUSTACK_KV_BLOCK``,
 ``TPUSTACK_KV_POOL_BLOCKS``, ``TPUSTACK_PREFIX_CACHE``,
-``TPUSTACK_SPEC_TOKENS`` (4), ``TPUSTACK_SPEC_NGRAM`` (3),
+``TPUSTACK_PREFIX_CACHE_MB``, ``TPUSTACK_PREFIX_CACHE_CHUNK``,
+``TPUSTACK_KV_HOST_TIER_MB``, ``TPUSTACK_KV_HOST_TIER_CROSSOVER``,
+``TPUSTACK_PREFILL_CHUNK_TOKENS``, ``TPUSTACK_SPEC_TOKENS`` (4),
+``TPUSTACK_SPEC_NGRAM`` (3), ``TPUSTACK_SPEC_DRAFT``,
 ``TPUSTACK_PAGED_FLASH`` (``auto``: the paged kernel on CUDA where the
 engine's geometry is inside its contract), ``PORT`` (8080), and
 ``LLM_DEVICE`` (default the first GPU; ``cpu`` to run on the CPU).  Weights
 are drawn from seed 0, as the JAX server's are without a checkpoint.
 
-Not ported yet, and refused rather than served some other way:
-``LLM_MAX_BATCH < 2`` (the dense solo engine), ``TPUSTACK_PAGED_KV=0`` (the
-dense engine), ``LLM_TP``, ``MODEL_DIR``, ``LLM_TOKENIZER_DIR`` and
-``TPUSTACK_SPEC_DRAFT`` (startup errors); ``POST /profile`` and
+Refused at startup: ``LLM_TP``, ``MODEL_DIR``, ``LLM_TOKENIZER_DIR`` and
+``TPUSTACK_SPEC_DRAFT_DIR`` (not ported yet), and a configuration on CUDA
+whose prefill would reach the streaming flash kernel outside its contract
+(``Generator.stream_route_violation``).  ``POST /profile`` and
 ``/debug/kvcache`` answer 404.
 """
 
@@ -192,7 +215,8 @@ def build_paged(gen, max_batch: int, block: Optional[int] = None,
     ``min(64, max(8, ctx / 8))``, snapped down to divide ctx), pool
     ``TPUSTACK_KV_POOL_BLOCKS`` (default ``max_batch * ctx / block``, dense
     parity) plus the reserved block 0, prefix cache per
-    ``TPUSTACK_PREFIX_CACHE``."""
+    ``TPUSTACK_PREFIX_CACHE``, and behind the cache the host KV tier when
+    ``TPUSTACK_KV_HOST_TIER_MB`` is above 0."""
     from tpustack_torch.models.llama import init_kv_pool
     from tpustack_torch.serving.kv_pool import KVBlockPool, PagedKVRuntime, PagedPrefixCache
 
@@ -213,22 +237,69 @@ def build_paged(gen, max_batch: int, block: Optional[int] = None,
     pool = KVBlockPool(n_blocks + 1, block)
     arrays = init_kv_pool(gen.cfg, n_blocks + 1, block, gen.cache_dtype, gen.device)
     rt = PagedKVRuntime(arrays, pool, max_seq, PagedPrefixCache(pool) if prefix_cache else None)
+    tier_mb = knobs.get_float("TPUSTACK_KV_HOST_TIER_MB")
+    if rt.cache is not None and tier_mb > 0:
+        from tpustack_torch.serving.kv_host_tier import HostKVTier
+
+        rt.cache.host_tier = HostKVTier(int(tier_mb * 1024 * 1024), pool,
+                                        arrays_fn=lambda: rt.arrays)
+        log.info("host KV tier on: %.0f MB arena behind the %d-block pool", tier_mb, n_blocks)
     log.info("paged KV pool: %d blocks x %d tokens (ctx %d), %.2f GB, prefix cache %s",
              n_blocks, block, max_seq, rt.pool_bytes / 1e9, "on" if prefix_cache else "off")
     return rt
 
 
-def build_spec():
+def build_prefix_cache():
+    """The dense engines' host prefix store from ``TPUSTACK_PREFIX_CACHE``
+    (None when off), ``TPUSTACK_PREFIX_CACHE_MB`` and
+    ``TPUSTACK_PREFIX_CACHE_CHUNK``."""
+    from tpustack_torch.serving.prefix_cache import PrefixCache
+
+    if not _env_bool("TPUSTACK_PREFIX_CACHE", True):
+        return None
+    mb = knobs.get_float("TPUSTACK_PREFIX_CACHE_MB")
+    return PrefixCache(chunk_tokens=knobs.get_int("TPUSTACK_PREFIX_CACHE_CHUNK"),
+                       capacity_bytes=max(1, int(mb * 1024 * 1024)))
+
+
+def build_spec(gen=None):
     """The speculation config from ``TPUSTACK_SPEC_TOKENS`` (0 = off) and
-    ``TPUSTACK_SPEC_NGRAM``."""
+    ``TPUSTACK_SPEC_NGRAM``; ``TPUSTACK_SPEC_DRAFT=<preset>`` drafts with a
+    second model of that preset at ``gen``'s context, drawn from seed 0."""
     from tpustack_torch.serving.speculative import SpecConfig
 
-    if os.environ.get("TPUSTACK_SPEC_DRAFT"):
-        raise _not_ported("TPUSTACK_SPEC_DRAFT (a draft-model drafter)")
     k = _env_int("TPUSTACK_SPEC_TOKENS", 4)
     if k <= 0:
         return None
-    return SpecConfig(tokens=k, ngram_max=max(1, _env_int("TPUSTACK_SPEC_NGRAM", 3)))
+    preset = knobs.get_str("TPUSTACK_SPEC_DRAFT").strip()
+    drafter = build_draft_drafter(gen, preset) if preset else None
+    return SpecConfig(tokens=k, ngram_max=max(1, _env_int("TPUSTACK_SPEC_NGRAM", 3)),
+                      drafter=drafter)
+
+
+def build_draft_drafter(gen, preset: str):
+    """A ``DraftModelDrafter`` over a ``preset`` model at ``gen``'s context
+    and device (float32 ``tiny``, else bf16), random weights from seed 0."""
+    from tpustack_torch.models.llama import LlamaConfig
+    from tpustack_torch.models.llm_generate import Generator
+    from tpustack_torch.serving.speculative import DraftModelDrafter
+
+    presets = ("tiny", "llama2_7b", "qwen25_7b")
+    if preset not in presets:
+        raise ValueError(f"TPUSTACK_SPEC_DRAFT={preset!r}: unknown preset (want one of "
+                         f"{presets})")
+    if knobs.get_str("TPUSTACK_SPEC_DRAFT_DIR"):
+        raise _not_ported("TPUSTACK_SPEC_DRAFT_DIR (loading the draft model's checkpoint)")
+    if gen is None:
+        raise ValueError("TPUSTACK_SPEC_DRAFT needs the target generator (its context and "
+                         "device)")
+    cfg = (LlamaConfig.tiny(max_seq=gen.cfg.max_seq) if preset == "tiny"
+           else dataclasses.replace(getattr(LlamaConfig, preset)(), max_seq=gen.cfg.max_seq))
+    dtype = torch.float32 if preset == "tiny" else torch.bfloat16
+    draft = Generator(cfg, dtype=dtype, seed=0, device=gen.device)
+    log.info("speculative draft model: %s (random weights, %.2f GB)", preset,
+             draft.weight_bytes / 1e9)
+    return DraftModelDrafter(draft)
 
 
 class IncrementalDetokenizer:
@@ -273,20 +344,30 @@ class IncrementalDetokenizer:
                                                                     self.read_off])):]
 
 
+class _Cancelled(Exception):
+    """A solo request's waiter is gone: its generation stops."""
+
+
 class _Pending:
-    """A completion waiting for (or decoding in) the engine.  ``stream``:
-    a queue of the row's tokens (None at the end) for a streamed request."""
+    """A completion waiting for (or decoding in) the engine or the solo
+    device lock.  ``stream``: a queue of the row's tokens (None at the end)
+    for a streamed request.  ``prefix``/``kv_blocks``/``on_prefill_blocks``
+    /``host_restore``: the paged admission's; ``prefix``/``kv_extract``/
+    ``on_prefill_kv``: the dense prefix store's."""
 
     __slots__ = ("ids", "n_predict", "sample", "seed", "prefix", "kv_blocks",
                  "on_prefill_blocks", "speculative", "phase", "done", "result", "error",
                  "cancel", "stream", "span_ctx", "queue_span", "tenant", "priority",
-                 "t_enqueue", "t_kv_alloc")
+                 "t_enqueue", "t_kv_alloc", "host_restore", "kv_extract", "on_prefill_kv")
 
     def __init__(self, ids, n_predict, sample, seed, prefix, kv_blocks, on_prefill_blocks,
-                 speculative, stream=None):
+                 speculative, stream=None, host_restore=None, kv_extract=None,
+                 on_prefill_kv=None):
         self.ids, self.n_predict, self.sample, self.seed = ids, n_predict, sample, seed
         self.prefix, self.kv_blocks = prefix, kv_blocks
         self.on_prefill_blocks = on_prefill_blocks
+        self.host_restore = host_restore
+        self.kv_extract, self.on_prefill_kv = kv_extract, on_prefill_kv
         self.speculative = speculative
         # the server owns the pool references until "decode", the phase a
         # 504 names once feed() hands the request to a slot
@@ -308,13 +389,18 @@ class _Pending:
 
 
 class LLMServer:
-    """llama.cpp-surface server over the paged continuous engine."""
+    """llama.cpp-surface server over the paged or dense continuous engine,
+    or the solo path."""
 
     _FROM_ENV = object()
 
     def __init__(self, generator=None, tokenizer=None, model_name: str = "tpustack_torch",
                  max_batch: Optional[int] = None, paged=_FROM_ENV, spec=_FROM_ENV,
                  registry=None, tracer=None):
+        """``paged``: a ``PagedKVRuntime``, None for a dense engine, or from
+        the environment (none for ``LLM_MAX_BATCH=1`` or
+        ``TPUSTACK_PAGED_KV=0``; the dense engines then build their prefix
+        store from the environment)."""
         # metrics registry and tracer: tests pass fresh ones for isolation;
         # the defaults are the process-wide ones /metrics and /debug/traces serve
         self._registry = registry
@@ -333,23 +419,42 @@ class LLMServer:
             generator, tokenizer, model_name = _build_generator()
         self.gen, self.tok, self.model_name = generator, tokenizer, model_name
         self.max_batch = _env_int("LLM_MAX_BATCH", 8) if max_batch is None else max_batch
-        if self.max_batch < 2:
-            raise _not_ported(f"LLM_MAX_BATCH={self.max_batch} (the dense solo engine)")
-        if not _env_bool("TPUSTACK_PAGED_KV", True):
-            raise _not_ported("TPUSTACK_PAGED_KV=0 (the dense per-slot engine)")
-        self.spec_cfg = build_spec() if spec is LLMServer._FROM_ENV else spec
-        self.paged = build_paged(self.gen, self.max_batch) if paged is LLMServer._FROM_ENV \
-            else paged
-        if self.paged is None:
-            raise _not_ported("serving without a paged KV pool (the dense engine)")
-        from tpustack_torch.models.llm_generate import resolve_paged_flash
+        if self.max_batch < 1:
+            raise ValueError(f"LLM_MAX_BATCH={self.max_batch} must be at least 1")
+        # a configuration whose prefill would reach the streaming flash
+        # kernel outside its contract is refused here, not mid-request
+        why = self.gen.stream_route_violation()
+        if why is not None:
+            raise ValueError(f"this LLM configuration cannot be served on {self.gen.device}: "
+                             f"{why}")
+        if paged is LLMServer._FROM_ENV:
+            paged = (build_paged(self.gen, self.max_batch)
+                     if self.max_batch >= 2 and knobs.get_bool("TPUSTACK_PAGED_KV") else None)
+        self.paged = paged
+        #: the dense engines' host prefix store (the block trie replaces it
+        #: under paging)
+        self.prefix_cache = build_prefix_cache() if paged is None else None
+        self.spec_cfg = build_spec(self.gen) if spec is LLMServer._FROM_ENV else spec
+        drafter = getattr(self.spec_cfg, "drafter", None)
+        if drafter is not None and hasattr(drafter, "gen"):
+            why = drafter.gen.stream_route_violation()
+            if why is not None:
+                raise ValueError(f"TPUSTACK_SPEC_DRAFT: the draft model cannot be served on "
+                                 f"{drafter.gen.device}: {why}")
+        if self.paged is not None:
+            from tpustack_torch.models.llm_generate import resolve_paged_flash
 
-        # resolved once at boot, on the engine's geometry: =1 outside the
-        # kernel's contract fails here, not on the first decode step
-        self.paged_flash = resolve_paged_flash(
-            self.gen.device, self.gen.cfg, self.gen.cache_dtype, self.paged.block,
-            self.spec_cfg.tokens if self.spec_cfg is not None else 0, self.max_batch)
+            # resolved once at boot, on the engine's geometry: =1 outside
+            # the kernel's contract fails here, not on the first decode step
+            self.paged_flash = resolve_paged_flash(
+                self.gen.device, self.gen.cfg, self.gen.cache_dtype, self.paged.block,
+                self.spec_cfg.tokens if self.spec_cfg is not None else 0, self.max_batch)
+        else:
+            self.paged_flash = False
+        self._wire_cache_metrics()
         chunk = max(1, _env_int("LLM_CHUNK", 32))
+        #: the solo path's decode chunk
+        self.chunk = chunk
         override = _env_int("LLM_ENGINE_CHUNK", 0)
         self.engine_chunk = override if override > 0 else min(chunk, 16)
         self._queue: collections.deque = collections.deque()
@@ -357,31 +462,80 @@ class LLMServer:
         self._stop = False
         self._engine = None
         self._spec_drafted = self._spec_accepted = 0
+        # the solo path: one request on the device at a time; requests
+        # waiting for (or holding) the device lock count in the queue depth
+        self._device_lock = threading.Lock()
+        self._solo_lock = threading.Lock()
+        self._solo_waiting = 0  # guarded-by: _solo_lock
         #: stats of every finished engine run, newest last
         self.run_log: collections.deque = collections.deque(maxlen=256)
         # drain on SIGTERM, deadlines, 429 backpressure, the watchdog and
         # the TPUSTACK_FAULT_* hooks; queue depth is what waits for a slot
-        self.resilience = ResilienceManager("llm", registry, concurrency=self.max_batch,
-                                            queue_depth=lambda: len(self._queue),
-                                            expected_service_s=2.0, qos=self.qos)
+        self.resilience = ResilienceManager(
+            "llm", registry, concurrency=self.max_batch,
+            queue_depth=lambda: len(self._queue) + self._solo_waiting,
+            expected_service_s=2.0, qos=self.qos)
         self.flight = obs_flight.register(obs_flight.FlightRecorder("llm", meta={
             "model": model_name, "slots": self.max_batch, "chunk": self.engine_chunk,
-            "paged_kv": True, "decode_kernel": self.decode_kernel,
+            "paged_kv": self.paged is not None, "decode_kernel": self.decode_kernel,
             "spec_tokens": self.spec_cfg.tokens if self.spec_cfg is not None else 0}))
-        self._paged_gauges()
-        log.info("decode attention: %s (KV block %d, %d slots, speculation %d, %s, "
-                 "weights %s, %.2f GB)", self.decode_kernel, self.paged.block,
+        if self.paged is not None:
+            self._paged_gauges()
+        chunk_tokens = knobs.get_int("TPUSTACK_PREFILL_CHUNK_TOKENS")
+        if chunk_tokens > 0 and self.paged is None:
+            log.warning("TPUSTACK_PREFILL_CHUNK_TOKENS=%d takes effect on the paged engine "
+                        "only (as in the JAX server); this %s engine prefills whole prompts",
+                        chunk_tokens, self.engine_kind)
+        if knobs.get_float("TPUSTACK_KV_HOST_TIER_MB") > 0 and (
+                self.paged is None or self.paged.cache is None):
+            log.warning("TPUSTACK_KV_HOST_TIER_MB backs the paged prefix cache only (as in "
+                        "the JAX server); this %s engine has none", self.engine_kind)
+        log.info("engine %s, decode attention %s (%d slots, speculation %d (%s), %s, weights "
+                 "%s, %.2f GB, prefill chunk %d)", self.engine_kind, self.decode_kernel,
                  self.max_batch, self.spec_cfg.tokens if self.spec_cfg is not None else 0,
-                 self.gen.cache_dtype, self.gen.cfg.quant or "float", self.gen.weight_bytes / 1e9)
-        self._engine_thread = threading.Thread(target=self._engine_loop, name="llm-engine",
-                                               daemon=True)
-        self._engine_thread.start()
+                 type(drafter).__name__ if drafter is not None else "prompt lookup",
+                 self.gen.cache_dtype, self.gen.cfg.quant or "float",
+                 self.gen.weight_bytes / 1e9, chunk_tokens if self.paged is not None else 0)
+        self._engine_thread = None
+        if self.batchable:
+            self._engine_thread = threading.Thread(target=self._engine_loop,
+                                                   name="llm-engine", daemon=True)
+            self._engine_thread.start()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
     @property
+    def batchable(self) -> bool:
+        """Every request rides the continuous engine; solo only with
+        ``LLM_MAX_BATCH=1``."""
+        return self.max_batch > 1
+
+    @property
+    def engine_kind(self) -> str:
+        if not self.batchable:
+            return "solo"
+        return "paged" if self.paged is not None else "dense"
+
+    @property
     def decode_kernel(self) -> str:
+        """What decode attention reads: the pool through the paged kernel
+        or a gathered copy (paged engine), or the dense cache lines."""
+        if self.paged is None:
+            return "dense"
         return "paged_flash" if self.paged_flash else "gather"
+
+    def _wire_cache_metrics(self) -> None:
+        """The cache stores' eviction counters and the host tier's
+        counters point at this server's metric families."""
+        inc = self.metrics["tpustack_llm_prefix_cache_evictions_total"].inc
+        if self.prefix_cache is not None and self.prefix_cache._on_evict is None:
+            self.prefix_cache._on_evict = inc
+        cache = self.paged.cache if self.paged is not None else None
+        if cache is not None:
+            if cache.on_evict is None:
+                cache.on_evict = inc
+            if cache.host_tier is not None and cache.host_tier.metrics is None:
+                cache.host_tier.metrics = self.metrics
 
     # ------------------------------------------------------------ engine
     def _note_spec(self, drafted: int, accepted: int) -> None:
@@ -399,15 +553,20 @@ class LLMServer:
         self.metrics["tpustack_llm_kv_block_fragmentation_ratio"].set(p.fragmentation())
 
     def _release(self, r: _Pending) -> None:
-        """Give back a queued request's pool references (it died queued, or
-        its run failed before a slot took it; the engine owns them once the
-        request is handed to a slot)."""
-        if r.phase != "queued":
+        """Give back a queued request's pool references and claimed host
+        payloads (it died queued, or its run failed before a slot took it;
+        the engine owns them once the request is handed to a slot)."""
+        if r.phase != "queued" or self.paged is None:
             return
         ids = list(r.kv_blocks or [])
         if r.prefix:
             ids += list(r.prefix[1])
         r.kv_blocks, r.prefix = None, None
+        if r.host_restore is not None:
+            # the restore blocks free with the prefix references; the claims
+            # go back to the tier's ledger as expired
+            self.paged.cache.host_tier.abandon(len(r.host_restore[1]))
+            r.host_restore = None
         if ids:
             if r.tenant is not None and r.t_kv_alloc:
                 # died queued, but its blocks were resident all along
@@ -428,7 +587,8 @@ class LLMServer:
 
         def on_done(tokens, stats):
             self.metrics["tpustack_llm_running_requests"].dec()
-            self._paged_gauges()  # the engine freed the row's blocks first
+            if self.paged is not None:
+                self._paged_gauges()  # the engine freed the row's blocks first
             if tokens is None:
                 self.metrics["tpustack_llm_requests_rejected_total"].labels(
                     reason="admission").inc()
@@ -444,7 +604,9 @@ class LLMServer:
                            on_done=on_done, cancelled=r.cancel.is_set, seed=r.seed,
                            prefix=r.prefix, span_ctx=r.span_ctx, kv_blocks=r.kv_blocks,
                            on_prefill_blocks=r.on_prefill_blocks, speculative=r.speculative,
-                           tenant=r.tenant, t_kv_alloc=r.t_kv_alloc, priority=r.priority)
+                           tenant=r.tenant, t_kv_alloc=r.t_kv_alloc, priority=r.priority,
+                           host_restore=r.host_restore, kv_extract=r.kv_extract,
+                           on_prefill_kv=r.on_prefill_kv)
 
     # ------------------------------------------------------ QoS queue helpers
     def _pop_queued(self) -> _Pending:
@@ -544,6 +706,8 @@ class LLMServer:
             try:
                 stats = engine.run(feed)
                 self.run_log.append(stats)
+                if stats.get("prefill_chunks"):
+                    self.metrics["tpustack_llm_prefill_chunks_total"].inc(stats["prefill_chunks"])
                 if stats["requests"]:
                     self.metrics["tpustack_llm_batch_occupancy_slots"].observe(
                         stats["requests"])
@@ -561,7 +725,8 @@ class LLMServer:
                 # when a run died before on_done fired for some rows
                 self.metrics["tpustack_llm_running_requests"].set(0)
                 self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
-                self._paged_gauges()
+                if self.paged is not None:
+                    self._paged_gauges()
                 if self._queue:
                     self._wake.set()
 
@@ -579,49 +744,103 @@ class LLMServer:
 
     def _paged_admit(self, ids, n_predict: int, cache_prompt: bool):
         """Admission is allocation: a prefix hit increfs the shared blocks,
-        the rest allocates fresh blocks (evicting unreferenced cached ones
+        claimed host-tier payloads get fresh blocks riding the prefix (a
+        full pool abandons them and the hit is the device part alone), the
+        rest allocates fresh blocks (evicting unreferenced cached ones
         first); a shortfall raises :class:`OutOfKVBlocks`.  Returns
-        ``(prefix, kv_blocks, on_prefill_blocks)``."""
+        ``(prefix, kv_blocks, on_prefill_blocks, host_restore)``."""
         from tpustack_torch.serving.kv_pool import OutOfBlocks
 
         rt = self.paged
-        prefix = None
+        prefix = host_restore = None
         if rt.cache is not None and cache_prompt:
             m = rt.cache.match(ids)
+            hit = bool(m.length or m.host_payloads)
             self.metrics["tpustack_llm_prefix_cache_lookups_total"].labels(
-                result="hit" if m.length else "miss").inc()
-            self.metrics["tpustack_llm_prefix_cached_tokens"].observe(m.length)
-            span = obs_trace.current_span.get()
-            if span is not None:
-                span.add_event("prefix_cache", result="hit" if m.length else "miss",
-                               cached_tokens=m.length)
+                result="hit" if hit else "miss").inc()
             if m.length:
                 prefix = (m.length, m.block_ids)
+            host_tokens = 0
+            if m.host_payloads:
+                n_host = len(m.host_payloads)
+                try:
+                    rt.ensure_free(n_host)
+                    restore_ids = rt.pool.alloc_tokens(n_host * rt.block)
+                except OutOfBlocks:
+                    rt.cache.host_tier.abandon(n_host)
+                else:
+                    prefix = (m.length + n_host * rt.block, m.block_ids + list(restore_ids))
+                    host_restore = (restore_ids, m.host_payloads)
+                    host_tokens = n_host * rt.block
+            self.metrics["tpustack_llm_prefix_cached_tokens"].observe(m.length + host_tokens)
+            span = obs_trace.current_span.get()
+            if span is not None:
+                extra = {"host_restored_tokens": host_tokens} if host_tokens else {}
+                span.add_event("prefix_cache", result="hit" if hit else "miss",
+                               cached_tokens=m.length, **extra)
         n_shared = len(prefix[1]) if prefix else 0
+
+        def give_back():
+            if prefix:
+                rt.pool.decref(prefix[1])
+            if host_restore:  # claimed payloads die unwritten: restored -> expired
+                rt.cache.host_tier.abandon(len(host_restore[1]))
+
         fresh_tokens = rt.need_tokens(len(ids), max(0, n_predict)) - n_shared * rt.block
         need_fresh = rt.pool.blocks_for(fresh_tokens)
         if n_shared + need_fresh > rt.pool.capacity_blocks:
-            if prefix:
-                rt.pool.decref(prefix[1])
+            give_back()
             raise BadRequest(f"request needs {n_shared + need_fresh} KV blocks; the pool "
                              f"holds {rt.pool.capacity_blocks} (TPUSTACK_KV_POOL_BLOCKS)")
         try:
             rt.ensure_free(need_fresh)
             kv_blocks = rt.pool.alloc_tokens(fresh_tokens)
         except OutOfBlocks:
-            if prefix:
-                rt.pool.decref(prefix[1])
+            give_back()
             self.metrics["tpustack_requests_shed_total"].labels(
                 server="llm", reason="out_of_kv_blocks").inc()
             raise OutOfKVBlocks(self._retry_after(need_fresh - rt.pool.n_free)) from None
         on_insert = None
-        if rt.cache is not None and cache_prompt and len(ids) // rt.block > n_shared:
+        if rt.cache is not None and cache_prompt and (len(ids) // rt.block > n_shared
+                                                      or host_restore is not None):
+            # a host restore inserts even with no fresh full block: the
+            # insert is what re-promotes the claimed stubs onto their blocks
             ids_copy = list(ids)
 
             def on_insert(bids):
                 rt.cache.insert(ids_copy, bids)
         self._paged_gauges()
-        return prefix, kv_blocks, on_insert
+        return prefix, kv_blocks, on_insert, host_restore
+
+    def _prefix_lookup(self, ids, allow: bool):
+        """The dense store's policy: the longest cached prefix (a hit
+        restores it and prefills the suffix) and, when the prompt reaches
+        past it, an extract range and insert callback so this request's
+        prefill fills the store.  ``(prefix, kv_extract, on_prefill_kv)``,
+        all None with the store off or the request opted out."""
+        pc = self.prefix_cache
+        if pc is None or not allow:
+            return None, None, None
+        m = pc.match(ids)
+        self.metrics["tpustack_llm_prefix_cache_lookups_total"].labels(
+            result="hit" if m.length else "miss").inc()
+        self.metrics["tpustack_llm_prefix_cached_tokens"].observe(m.length)
+        span = obs_trace.current_span.get()
+        if span is not None:
+            span.add_event("prefix_cache", result="hit" if m.length else "miss",
+                           cached_tokens=m.length)
+        prefix = (m.length, m.kv, m.key) if m.length else None
+        upto = pc.snap(len(ids))
+        if upto <= m.length:
+            return prefix, None, None
+        start, ids_copy = m.length, list(ids)
+
+        def on_kv(kv):
+            pc.insert(ids_copy, start, kv)
+            self.metrics["tpustack_llm_prefix_cache_bytes"].set(pc.bytes)
+            self.metrics["tpustack_llm_prefix_cache_entries"].set(pc.entries)
+
+        return prefix, (start, upto), on_kv
 
     def _admit(self, prompt: str, n_predict: int, temperature: float, top_k: int, seed,
                cache_prompt: bool, speculative: bool, stream: bool = False) -> _Pending:
@@ -636,13 +855,18 @@ class LLMServer:
             raise BadRequest("empty prompt")
         if len(ids) >= self.gen.cfg.max_seq:
             raise BadRequest(f"prompt ({len(ids)} tokens) exceeds ctx {self.gen.cfg.max_seq}")
-        prefix, kv_blocks, on_insert = self._paged_admit(ids, n_predict, cache_prompt)
-        r = _Pending(ids, n_predict, SampleConfig(temperature=temperature, top_k=top_k,
-                                                  greedy=temperature <= 0),
-                     seed, prefix, kv_blocks, on_insert, speculative,
-                     stream=queue.Queue() if stream else None)
-        r.t_kv_alloc = time.time()
-        return r
+        sample = SampleConfig(temperature=temperature, top_k=top_k, greedy=temperature <= 0)
+        q = queue.Queue() if stream else None
+        if self.paged is not None and self.batchable:
+            prefix, kv_blocks, on_insert, host_restore = self._paged_admit(ids, n_predict,
+                                                                           cache_prompt)
+            r = _Pending(ids, n_predict, sample, seed, prefix, kv_blocks, on_insert,
+                         speculative, stream=q, host_restore=host_restore)
+            r.t_kv_alloc = time.time()
+            return r
+        prefix, extract, on_kv = self._prefix_lookup(ids, cache_prompt)
+        return _Pending(ids, n_predict, sample, seed, prefix, None, None, speculative, stream=q,
+                        kv_extract=extract, on_prefill_kv=on_kv)
 
     def _enqueue(self, r: _Pending) -> None:
         # engine threads do not see the handler's contextvars: the root
@@ -654,9 +878,75 @@ class LLMServer:
         r.tenant = obs_accounting.current_tenant.get()
         r.priority = qos_mod.current_priority.get() if self.qos is not None else None
         r.t_enqueue = time.time()
+        if not self.batchable:
+            with self._solo_lock:
+                self._solo_waiting += 1
+            threading.Thread(target=self._solo_worker, args=(r,), name="llm-solo",
+                             daemon=True).start()
+            return
         self._queue.append(r)
         self.metrics["tpustack_llm_queue_depth"].set(len(self._queue))
         self._wake.set()
+
+    def _solo_worker(self, r: _Pending) -> None:
+        """The solo path (a worker thread per request): wait for the device
+        lock, then generate, the fused chunked decode for a plain request
+        (the watchdog beats and the cancel flag is polled per chunk) or one
+        step per token for a stream (beats and polls per token).  A request
+        whose waiter gave up while it queued never touches the device."""
+        try:
+            with self._device_lock:
+                if r.queue_span is not None:
+                    r.queue_span.end()
+                if r.cancel.is_set():
+                    raise _Cancelled()
+                r.phase = "decode"
+                if r.t_enqueue:
+                    self.ledger.charge_queue_seconds("llm", r.tenant, time.time() - r.t_enqueue)
+                self.resilience.progress("prefill")
+                try:
+                    r.result = self._solo_generate(r)
+                finally:
+                    if r.stream is None:
+                        self.resilience.progress("wave")
+        except _Cancelled:
+            r.error = DeadlineExceeded(r.phase)
+        except Exception as e:  # the waiter reports it; the server stays up
+            if not isinstance(e, InjectedDeviceError):
+                log.exception("solo generation failed")
+            r.error = e
+        finally:
+            if r.queue_span is not None:
+                r.queue_span.end()  # idempotent
+            with self._solo_lock:
+                self._solo_waiting -= 1
+            r.done.set()
+            if r.stream is not None:
+                r.stream.put(None)
+
+    def _solo_generate(self, r: _Pending):
+        """``(token ids, stats)`` of one solo request on the generator."""
+        eos = self.tok.eos_id
+        hooks = dict(prefix=r.prefix, kv_extract=r.kv_extract, on_prefill_kv=r.on_prefill_kv)
+        if r.stream is not None:
+            def on_token(t):
+                self.resilience.beat()
+                if t != eos:
+                    r.stream.put(t)
+                if r.cancel.is_set():
+                    raise _Cancelled()
+
+            return self.gen.generate(r.ids, max_new_tokens=r.n_predict, sample=r.sample,
+                                     seed=r.seed, stop_tokens=(eos,), on_token=on_token,
+                                     **hooks)
+
+        def chunk_check():
+            self.resilience.beat()  # a long healthy solo run keeps beating
+            return r.cancel.is_set()
+
+        return self.gen.generate_fused(r.ids, max_new_tokens=r.n_predict, sample=r.sample,
+                                       seed=r.seed, stop_tokens=(eos,), chunk=self.chunk,
+                                       cancel_check=chunk_check, **hooks)
 
     def complete(self, prompt: str, n_predict: int = 128, temperature: float = 0.8,
                  top_k: int = 40, seed=None, cache_prompt: bool = True,
@@ -738,8 +1028,11 @@ class LLMServer:
         in-flight work on purpose."""
         status, payload = self.resilience.health_payload(extra={"engine": {
             "model": self.model_name, "slots": self.max_batch, "chunk": self.engine_chunk,
-            "queue_depth": len(self._queue), "running": self._engine is not None,
-            "prefix_cache": self.paged.cache is not None, "paged_kv": True,
+            "queue_depth": len(self._queue), "solo_waiting": self._solo_waiting,
+            "running": self._engine is not None,
+            "prefix_cache": (self.prefix_cache is not None
+                             or (self.paged is not None and self.paged.cache is not None)),
+            "paged_kv": self.paged is not None, "engine": self.engine_kind,
             "decode_kernel": self.decode_kernel, "device": str(self.gen.device)}})
         return json_reply(status, payload, self.resilience.health_headers(status))
 
@@ -777,20 +1070,31 @@ class LLMServer:
         rt = self.paged
         kernel = self.decode_kernel
         sc = self.spec_cfg
+        enabled = sc is not None and self.batchable  # the solo path decodes plain
+        if rt is not None:
+            paged_kv = dict(rt.stats(), enabled=True, dense_fallback=False, kernel=kernel,
+                            prefill_chunk_tokens=knobs.get_int("TPUSTACK_PREFILL_CHUNK_TOKENS"))
+            cache = rt.cache.stats() if rt.cache is not None else {"enabled": False}
+        else:
+            paged_kv = {"enabled": False, "dense_fallback": True}
+            cache = (self.prefix_cache.stats() if self.prefix_cache is not None
+                     else {"enabled": False})
         return json_reply(200, {
             "model": self.model_name,
             "n_ctx": self.gen.cfg.max_seq,
             "backend": f"torch/{self.gen.device.type}",
             "slots": self.max_batch,
+            "engine": self.engine_kind,
             "quant": self.gen.cfg.quant,
             "kv_quant": self.gen.cfg.kv_quant,
             "decode_kernel": kernel,
-            "paged_kv": dict(rt.stats(), enabled=True, dense_fallback=False, kernel=kernel),
-            "prefix_cache": rt.cache.stats() if rt.cache is not None else {"enabled": False},
+            "paged_kv": paged_kv,
+            "prefix_cache": cache,
             "speculative": {
-                "enabled": sc is not None,
-                "tokens": sc.tokens if sc is not None else 0,
-                "drafter": "prompt_lookup" if sc is not None else None,
+                "enabled": enabled,
+                "tokens": sc.tokens if enabled else 0,
+                "drafter": ((type(sc.drafter).__name__ if sc.drafter is not None
+                             else "prompt_lookup") if enabled else None),
                 "drafted_tokens": self._spec_drafted,
                 "accepted_tokens": self._spec_accepted,
                 "acceptance_ratio": (self._spec_accepted / self._spec_drafted
@@ -1040,7 +1344,8 @@ class LLMServer:
             self._httpd = self._thread = None
         self._stop = True
         self._wake.set()
-        self._engine_thread.join(timeout=60)
+        if self._engine_thread is not None:
+            self._engine_thread.join(timeout=60)
         self.resilience.close()
 
 

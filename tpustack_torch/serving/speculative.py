@@ -1,11 +1,12 @@
-"""Speculative decoding, host side: the config and the prompt-lookup drafter.
+"""Speculative decoding, host side: the config and the drafters.
 
-A copy of ``SpecConfig`` and ``PromptLookupDrafter`` from
-``tpustack/serving/speculative.py`` (pure numpy).  The continuous engine
-scores the last accepted token plus up to ``SpecConfig.tokens`` drafted
-tokens in one forward pass (``Generator._spec_verify_paged``) and keeps the
-longest prefix the model agrees with, so greedy output is the same with
-speculation on or off.  ``DraftModelDrafter`` is not ported yet.
+The port of ``tpustack/serving/speculative.py``: ``SpecConfig``, the
+``PromptLookupDrafter`` (pure numpy) and the ``DraftModelDrafter`` (greedy
+proposals from a second generator).  The continuous engine scores the last
+accepted token plus up to ``SpecConfig.tokens`` drafted tokens in one
+forward pass (``Generator._spec_verify_paged`` / ``_spec_verify_cont``) and
+keeps the longest prefix the model agrees with, so greedy output is the same
+with speculation on or off, whatever the drafter.
 """
 
 from __future__ import annotations
@@ -65,3 +66,34 @@ class PromptLookupDrafter:
                 if cont.size:
                     return [int(x) for x in cont]
         return []
+
+
+class DraftModelDrafter:
+    """Greedy k-token proposals from a separate draft generator.
+
+    Rehearsal-grade by design, as in the JAX package: each call runs the
+    draft model's own solo prefill over the (ctx-clipped) history plus k
+    greedy decode steps (``Generator.generate``); no draft KV is kept, so a
+    proposal costs O(len(history)) draft-model work.  The draft generator
+    has its own caches and counters; the target's are never touched.  The
+    verify step owns correctness."""
+
+    def __init__(self, gen, stop_tokens: Sequence[int] = ()):
+        self.gen = gen
+        self.stop_tokens = tuple(stop_tokens)
+
+    def draft(self, history: Sequence[int], k: int) -> List[int]:
+        from tpustack_torch.models.llm_generate import SampleConfig
+
+        if k <= 0 or not history:
+            return []
+        # clip to the draft model's context (it may be shorter than the
+        # target's); proposals from shifted positions are still proposals
+        ctx = self.gen.cfg.max_seq
+        hist = list(history)[-(max(1, ctx - k - 1)):]
+        try:
+            out, _ = self.gen.generate(hist, max_new_tokens=k, sample=SampleConfig(greedy=True),
+                                       stop_tokens=self.stop_tokens)
+        except ValueError:
+            return []
+        return [int(t) for t in out[:k]]

@@ -3,7 +3,9 @@
 The port's copy of ``tpustack/utils/knobs.py``: the same names, types,
 defaults and parsing, for the knobs of the serving surface (resilience,
 fault injection, tracing, the flight recorder, the admin token, tenant
-accounting and multi-tenant QoS).  Every
+accounting, multi-tenant QoS) and of the LLM engine's modes (the dense
+engine, the dense prefix store, the host KV tier, chunked prefill, the
+draft-model drafter).  Every
 knob is declared once in :data:`REGISTRY` and read through the typed
 accessors, which raise on an undeclared name, a wrong type or a value that
 does not parse.  The older port modules read their model and engine knobs
@@ -111,6 +113,42 @@ _declare("TPUSTACK_QOS_POLICY", str, "",
          "QoS policy: inline JSON (starts with '{') or a path to a JSON "
          "file — per-tenant priority defaults and token-bucket quotas; "
          "empty = priorities only, no quotas.")
+
+
+# ------------------------------------------------------------- LLM engine
+_declare("TPUSTACK_PAGED_KV", bool, True,
+         "Paged KV substrate for batched serving (block pool + block "
+         "tables); 0 falls back to the dense per-slot engine (bisection).")
+_declare("TPUSTACK_PREFIX_CACHE_MB", float, 512.0,
+         "Resident host-byte cap for the DENSE prefix cache store.")
+_declare("TPUSTACK_PREFIX_CACHE_CHUNK", int, 256,
+         "Snap granularity in tokens for the dense prefix cache.")
+_declare("TPUSTACK_KV_HOST_TIER_MB", float, 0.0,
+         "Host-RAM second tier for the paged prefix cache: evicted "
+         "refcount-0 prefix blocks spill device->host into an LRU arena "
+         "of this many megabytes instead of dying, and a warm match "
+         "restores them pool-side in one copy (no prefill FLOPs).  0 is "
+         "the bisection flag: no tier constructs, eviction and match are "
+         "byte-for-byte the tier-free paths.")
+_declare("TPUSTACK_KV_HOST_TIER_CROSSOVER", bool, True,
+         "Restore-vs-recompute crossover guard for the host KV tier: when "
+         "on (default), a warm host-tier match only restores if the "
+         "measured per-block copy cost undercuts the measured per-block "
+         "prefill cost.  0 restores unconditionally (tiny/CPU shapes, "
+         "where both averages measure dispatch noise).")
+_declare("TPUSTACK_PREFILL_CHUNK_TOKENS", int, 0,
+         "Chunked prefill for the paged continuous engine: a prompt whose "
+         "uncached remainder exceeds this many tokens prefills in "
+         "block-aligned chunks of (at most) this size, parking between "
+         "chunks so decode waves of other slots interleave.  Admission "
+         "still charges the full block footprint up front.  0 disables "
+         "(admission is byte-for-byte the monolithic prefill).")
+_declare("TPUSTACK_SPEC_DRAFT", str, "",
+         "Draft-model preset (tiny | llama2_7b | qwen25_7b); empty keeps "
+         "the n-gram prompt-lookup drafter.")
+_declare("TPUSTACK_SPEC_DRAFT_DIR", str, "",
+         "Safetensors dir for the draft model; empty = random weights "
+         "(rehearsal-grade).")
 
 
 # ------------------------------------------------------------------ readers
